@@ -8,7 +8,8 @@ Run from the root of a checkout, with one CUDA device:
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. the card: name and power limit (``nvidia-smi``), TF32 off;
-2. build the kernels from ``differt2d_tpu_torch/ops/csrc`` (``nvcc``);
+2. build the kernels from ``differt2d_tpu_torch/ops/csrc`` (one ``nvcc`` per
+   source, all started together);
 3. the main path: ``power_map`` of ``Scene.basic_scene()`` on a 1024 x 1024
    receiver grid (order <= 1, soft logic, hard_sigmoid, alpha 100), as a
    value map and as a value + pixel-gradient map, through the entry point a
@@ -23,7 +24,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    respect to the transmitter, the walls and alpha, against the plain
    version's autograd;
 6. timing with CUDA events (32 maps chained without a host sync, median of
-   5 repeats), each kernel's bound, and the plain version's time.
+   5 repeats), each kernel's bound, and the plain version's time;
+7. the city path: ``power_map`` of ``Scene.city_extract_scene()`` (136
+   walls, order <= 1, soft logic, alpha 100) on a 1024 x 1024 grid, value
+   and value + gradient, through the looped kernels with their culling
+   tables; the looped launch counters are zeroed just before and read just
+   after, and the path must run no unrolled kernel and no eager tracer;
+   the culled maps must equal the identity-table maps of the same build bit
+   for bit, and the kernels are held against their plain versions on the
+   same 1024 x 1024 inputs, and again on a 256 x 256 map (cfg6/cfg7's size);
+   each plain call is timed once;
+8. coverage at 256 x 256, each against the plain version and bit for bit
+   against identity tables: ``city_scene``, hard logic, sigmoid (with the
+   card's saturation check printed), two transmitters, a transmitter grid,
+   a RIS and a vertex;
+9. autograd through the looped value kernel at 64 x 64 (walls, transmitter,
+   alpha) against the plain version's;
+10. timing at 1024 x 1024 and 256 x 256 (CUDA events, 8 maps chained,
+    median of 5): culled kernel, identity-table kernel, table build, end to
+    end, beside the plain version's time from phase 7; both bounds (the
+    unculled map's operations and those the tables leave) with the kept
+    shares.
+
+The profile of one city map and the tile / refine sweep that chose the
+culling constants are in ``differt2d_tpu_torch/ops/looped_tuning.py``.
 
 It prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line,
 and, last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -31,6 +55,7 @@ and, last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -45,6 +70,9 @@ GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 REPLACES = "differt2d_tpu/ops/pallas_kernels.py:362"
 SOURCE = "differt2d_tpu_torch/ops/csrc/power_map.cu"
+LOOPED_REPLACES = "differt2d_tpu/ops/pallas_kernels.py:2234"
+LOOPED_SOURCE = "differt2d_tpu_torch/ops/csrc/power_map_looped.cu"
+SOURCES = ("power_map.cu", "power_map_looped.cu")
 
 
 def fail(msg: str) -> None:
@@ -110,8 +138,57 @@ def assert_kinks(name, got, ref) -> float:
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite gradients")
     n_bad, allowed = kink_excess(got, ref, **GRAD_TOL)
     check(n_bad <= allowed, f"{name}: {n_bad} gradient elements beyond kink allowance {allowed}")
-    print(f"  {name}: {n_bad} kink elements (allowed {allowed:.0f})", flush=True)
-    return max_abs(got, ref)
+    # Where there are kink elements the largest error is one of them: say
+    # how large the others are.
+    diff = (got - ref).abs().reshape(-1)
+    kink = diff > GRAD_TOL["atol"] + GRAD_TOL["rtol"] * ref.abs().reshape(-1)
+    rest = float(diff[~kink].max()) if bool((~kink).any()) else 0.0
+    at = int(diff.argmax())
+    print(f"  {name}: {n_bad} kink elements (allowed {allowed:.0f}); max abs err {rest:.3g}"
+          f" elsewhere; largest: kernel {float(got.reshape(-1)[at]):.6g},"
+          f" plain {float(ref.reshape(-1)[at]):.6g}", flush=True)
+    return float(diff[at])
+
+
+def kink_probe(name, scene, X, Y, kw, got, ref) -> None:
+    """Print where a gradient map's largest error lies: the pixel, both
+    gradients there, and one-sided difference quotients of the kernel's
+    value map along that axis, from ``power_map`` on three points."""
+    import torch
+
+    from differt2d_tpu_torch import power_map
+
+    at = int((got - ref).abs().reshape(-1).argmax())
+    pix, axis = divmod(at, 2)
+    cols = X.shape[1]
+    x, y = X.reshape(-1)[pix], Y.reshape(-1)[pix]
+    quotients = []
+    for h in (1e-3, 1e-5):
+        step = torch.tensor([-h, 0.0, h], device=X.device)
+        px = (x + step * (axis == 0))[None]
+        py = (y + step * (axis == 1))[None]
+        z = power_map(scene, px, py, **kw)[0]
+        p = (px if axis == 0 else py)[0]
+        quotients.append(f"h={h:g}: {float((z[1] - z[0]) / (p[1] - p[0])):.6g},"
+                         f" {float((z[2] - z[1]) / (p[2] - p[1])):.6g}")
+    print(f"  {name}: largest error at pixel (row {pix // cols}, column {pix % cols}),"
+          f" x={float(x):.8g}, y={float(y):.8g}, d/d{'xy'[axis]}: kernel"
+          f" {float(got.reshape(-1)[at]):.6g}, plain {float(ref.reshape(-1)[at]):.6g};"
+          f" the kernel's value map's one-sided quotients (left, right) "
+          + "; ".join(quotients), flush=True)
+
+
+def timed(fn):
+    """``(fn(), ms)``: one call, timed with CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_time_ms(fn, k: int, reps: int) -> float:
@@ -165,29 +242,85 @@ OPS_CONTRACT = 7     # per bounce end of that segment: k 3, two products 2, sum 
 OPS_POWER_GRAD = 15  # dP/dr 3, unit vector 2, products 2, value rule 6, sum 2
 
 
+def cand_ops(row, kinds: tuple, with_grad: bool) -> tuple[int, int, int]:
+    """``(operations besides the blocked tests, blocked tests, operations per
+    launch and transmitter)`` of one candidate (its wall indices ``row``)
+    when every segment is tested against every non-adjacent, non-vertex
+    wall."""
+    order = len(row)
+    wall_kinds = [k for k in kinds if k != 2]
+    bounces = [kinds[i] for i in row if kinds[i] != 2]
+    ids = [-1, *row, -1]
+    tested = sum(
+        len(wall_kinds) - sum(1 for w in {ids[s], ids[s + 1]} if w >= 0 and kinds[w] != 2)
+        for s in range(order + 1)
+    )
+    f = OPS_SEGMENT * (order + 1) + order + OPS_VALID_POWER
+    f += sum(OPS_BOUNCE + OPS_LOSS[k] + OPS_ON for k in bounces)
+    f += OPS_GATE if bounces else 0
+    if with_grad:
+        f += sum(OPS_JACOBIAN + OPS_ON_GRAD + (OPS_LOSS_GRAD_RIS if k == 1 else 0)
+                 for k in bounces)
+        f += OPS_BLOCK_GRAD + (OPS_CONTRACT if bounces else 0) + OPS_POWER_GRAD
+    return f, tested, OPS_PER_IMAGE * len(bounces)
+
+
 def ops_count(groups: dict, kinds: tuple, n_tx: int, with_grad: bool) -> tuple[int, int]:
     """``(per pixel, per launch)`` operations of the main path's map."""
-    wall_kinds = [k for k in kinds if k != 2]
     per_pixel, per_launch = 0, OPS_PER_WALL * len(kinds)
     for order, cands in groups.items():
         for row in cands:
-            row = [int(i) for i in row]
-            bounces = [kinds[i] for i in row if kinds[i] != 2]
-            ids = [-1, *row, -1]
-            tested = sum(
-                len(wall_kinds) - sum(1 for w in {ids[s], ids[s + 1]} if w >= 0 and kinds[w] != 2)
-                for s in range(order + 1)
-            )
-            f = OPS_SEGMENT * (order + 1) + order + OPS_TEST * tested + OPS_VALID_POWER
-            f += sum(OPS_BOUNCE + OPS_LOSS[k] + OPS_ON for k in bounces)
-            f += OPS_GATE if bounces else 0
-            if with_grad:
-                f += sum(OPS_JACOBIAN + OPS_ON_GRAD + (OPS_LOSS_GRAD_RIS if k == 1 else 0)
-                         for k in bounces)
-                f += OPS_BLOCK_GRAD + (OPS_CONTRACT if bounces else 0) + OPS_POWER_GRAD
-            per_pixel += f
-            per_launch += OPS_PER_IMAGE * len(bounces) * n_tx
+            f, tested, img = cand_ops([int(i) for i in row], kinds, with_grad)
+            per_pixel += f + OPS_TEST * tested
+            per_launch += img * n_tx
     return per_pixel * n_tx + (n_tx - 1) * (3 if with_grad else 1), per_launch
+
+
+def ops_left(plan, inputs, kinds: tuple, with_grad: bool) -> tuple[int, int, int]:
+    """``(operations, blocked tests, kept candidate-pixels)`` that a looped
+    map's tables leave, summed over its pixels and transmitters: each
+    tile's kept candidates, each tested against the walls its occluder
+    lists hold (less the adjacent wall and vertices, as the kernel skips
+    them), plus the operations per launch."""
+    import torch
+
+    from differt2d_tpu_torch.ops.cull_tables import unpack_words
+
+    dev = inputs.cand.device
+    W, C = len(kinds), inputs.num_candidates
+    solid = torch.tensor([k != 2 for k in kinds], device=dev)
+    not_self = ~torch.eye(W, dtype=torch.bool, device=dev)
+    rows = [[int(i)] for i in inputs.cand.tolist()]
+    base = torch.tensor([cand_ops(r, kinds, with_grad)[0] for r in rows] or [0],
+                        dtype=torch.float64, device=dev)[:C]
+    los_base = cand_ops([], kinds, with_grad)[0]
+    tx, ty = plan.tiles
+    cols = torch.arange(tx, device=dev)
+    npix = ((torch.clamp(plan.cols - cols * plan.tile[0], max=plan.tile[0]))[None, :]
+            * torch.clamp(plan.rows - torch.arange(ty, device=dev)[:, None] * plan.tile[1],
+                          max=plan.tile[1])).reshape(-1).double()
+    ops, tests, kept = 0.0, 0.0, 0.0
+    w0 = inputs.cand.long()
+    for tp in plan.per_tx:
+        tb = tp.tables
+        keep = torch.zeros(tb.cnt.shape[0], C, dtype=torch.bool, device=dev)
+        keep.scatter_(1, tb.prm.long(),
+                      torch.arange(C, device=dev)[None, :] < tb.cnt[:, None].long())
+        l0 = (unpack_words(tb.l0w, W) & not_self & solid).sum(-1).double()
+        last = (unpack_words(tb.lastw, W) & not_self & solid).sum(-1).double()
+        tile_tests = (keep * (l0[w0][None, :] + last[:, w0])).sum(-1)
+        tile_ops = (keep * base[None, :]).sum(-1) + OPS_TEST * tile_tests
+        if inputs.has_los:
+            los = (unpack_words(tb.losw, W) & solid).sum(-1).double()
+            tile_tests = tile_tests + los
+            tile_ops = tile_ops + los_base + OPS_TEST * los
+        ops += float((npix * tile_ops).sum())
+        tests += float((npix * tile_tests).sum())
+        kept += float((npix * keep.sum(-1)).sum())
+    n_tx = len(plan.per_tx)
+    ops += plan.rows * plan.cols * (n_tx - 1) * (3 if with_grad else 1)
+    ops += OPS_PER_WALL * W + OPS_PER_IMAGE * C * n_tx
+    return int(ops), int(tests), int(kept)
 
 
 def main() -> int:
@@ -214,17 +347,21 @@ def main() -> int:
     from differt2d_tpu_torch.logic import sigmoid
     from differt2d_tpu_torch.ops import _build
     from differt2d_tpu_torch.ops import power_map_kernel as pmk
+    from differt2d_tpu_torch.ops import power_map_looped as pml
     from differt2d_tpu_torch.rt import path_candidate_matrices
 
-    # -- 2. build -------------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together --------------------------
     t0 = time.perf_counter()
-    lib_path, nvcc_s = _build.build(pmk.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
     pmk.load_library()
-    print(f"build: {nvcc_s:.1f} s in nvcc, {time.perf_counter() - t0:.1f} s total -> {lib_path}",
-          flush=True)
-    for line in _build.BUILD_LOG.get(pmk.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    pml.load_library()
+    for src, (lib_path, nvcc_s) in built.items():
+        print(f"build {src}: {nvcc_s:.1f} s in nvcc -> {lib_path}", flush=True)
+        for line in _build.BUILD_LOG.get(src, "").splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print("  ptxas:", line.strip(), flush=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s total", flush=True)
 
     # -- 3. main path at full size ------------------------------------------------
     n = 1024
@@ -345,10 +482,222 @@ def main() -> int:
           f" points/s), value+grad {e2e_vag_ms:.4f} ms/map ({P / e2e_vag_ms * 1e3:.4g} points/s)",
           flush=True)
     print("library_ms: null -- no single PyTorch call computes this map", flush=True)
+    rows += city_phases(dev, peak_fp32)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0
+
+
+def city_grid(n: int, device):
+    import torch
+
+    x = torch.linspace(0.01, 0.99, n, device=device)
+    return torch.meshgrid(x, x, indexing="xy")
+
+
+def city_phases(dev, peak_fp32: float) -> list:
+    """Phases 7-10: the city path (``Scene.city_extract_scene()``, order
+    <= 1, looped kernels with tile culling and occluder lists)."""
+    import torch
+
+    from differt2d_tpu_torch import Scene, eager, power_map
+    from differt2d_tpu_torch import tracer as tr
+    from differt2d_tpu_torch.logic import sigmoid
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+    from differt2d_tpu_torch.ops import power_map_looped as pml
+
+    def request(sc, X, Y, kw, **plan_kw):
+        """The looped wrapper's inputs for ``power_map(sc, X, Y, **kw)``:
+        ``(args, kernel kw, gates, replan)``, with the dispatch's gates
+        unless ``plan_kw`` overrides them; ``replan()`` builds the plan
+        (constants and tables) again."""
+        o = {**tr._OPTIONS, **kw}
+        groups = tr._groups_for(sc, o)
+        check(tr._route(sc, o, groups, "auto", grad=False) == "looped",
+              "the request does not route to the looped kernels")
+        cull, shadow = tr._looped_gates(sc, o, groups)
+        sig = o["function"] is sigmoid
+        target = sc.swap_ends() if o["on_transmitters"] else sc
+        txs = torch.stack(list(target.transmitters.values())).contiguous()
+        inputs = pml.looped_inputs(groups, dev, approx=o["approx"], sigmoid=sig)
+        scal = tuple(o[name] for name in tr._SCALAR_NAMES)
+        def replan():
+            return pml.make_plan(X, Y, txs, sc.walls, sc.kind, scal, inputs,
+                                 approx=o["approx"], sigmoid=sig,
+                                 **{"cull": cull, "shadow": shadow, **plan_kw})
+
+        args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), sc.walls, sc.kind,
+                sc.phi, scal, inputs, replan())
+        return args, dict(approx=o["approx"], sigmoid=sig), (cull, shadow), replan
+
+    def equal(name, a, b):
+        same = torch.equal(a, b)
+        check(same, f"{name}: culled and identity-table maps differ at"
+                    f" {int((a != b).sum())} elements")
+        print(f"  {name}: culled == identity tables, bit for bit ({a.numel()} elements)",
+              flush=True)
+
+    # -- 7. the city path at full size ------------------------------------------------------
+    n = 1024
+    city = Scene.city_extract_scene()
+    X, Y = city_grid(n, dev)
+    kw = dict(max_order=1, approx=True)
+    traced = []
+    trace_group = eager._trace_group
+    eager._trace_group = lambda *a, **k: traced.append(1) or trace_group(*a, **k)
+    pml.reset_launches()
+    unrolled_before = dict(pmk.LAUNCHES)
+    Z = power_map(city, X, Y, **kw)
+    Zv, dZ = power_map(city, X, Y, value_and_grad=True, **kw)
+    torch.cuda.synchronize()
+    launches = dict(pml.LAUNCHES)
+    eager._trace_group = trace_group
+    print(f"city path launches: {launches}", flush=True)
+    check(launches["power_map_looped_value"] >= 1, "power_map_looped_value did not run")
+    check(launches["power_map_looped_vag"] >= 1, "power_map_looped_vag did not run")
+    check(dict(pmk.LAUNCHES) == unrolled_before, "the city path ran an unrolled kernel")
+    check(not traced, "the city path ran the eager tracer")
+    check(Z.shape == X.shape and dZ.shape == (*X.shape, 2), "city path: wrong output shapes")
+    check(bool(torch.isfinite(Z).all() and torch.isfinite(dZ).all()), "city path: non-finite")
+    check(float(Z.sum()) > 0.0, "city path: the map is all zero")
+    args, kkw, gates, _ = request(city, X, Y, kw)
+    ident, _, _, _ = request(city, X, Y, kw, cull=False, shadow=False)
+    print(f"city path gates (cull, shadow): {gates}", flush=True)
+    cv = pml.value(*args, **kkw)
+    iv = pml.value(*ident, **kkw)
+    cvv, cg = pml.value_and_grad(*args, **kkw)
+    ivv, ig = pml.value_and_grad(*ident, **kkw)
+    equal("value map 1024^2", cv, iv)
+    equal("vag value 1024^2", cvv, ivv)
+    equal("vag gradient 1024^2", cg, ig)
+    check(torch.equal(Z.reshape(-1), cv) and torch.equal(dZ.reshape(-1, 2), cg),
+          "power_map's output differs from the wrapper's on the same tables")
+
+    # Each kernel against its plain version on the main path's 1024^2 inputs
+    # (these errors and plain times go into the kernels line), then on a
+    # 256^2 map (cfg6/cfg7's size).  Each plain call is timed once.
+    m = 256
+    Xs, Ys = city_grid(m, dev)
+    a256, _, _, _ = request(city, Xs, Ys, kw)
+    err, plain_ms = {}, {}
+    for size, a_t, (Xg, Yg) in ((n, args, (X, Y)), (m, a256, (Xs, Ys))):
+        ref, plain_ms[size, False] = timed(lambda: pml.plain_looped_value(*a_t))
+        err[size, False] = assert_close(f"city value {size}^2", pml.value(*a_t, **kkw), ref)
+        (rv, rg), plain_ms[size, True] = timed(lambda: pml.plain_looped_value_and_grad(*a_t))
+        gv, gg = pml.value_and_grad(*a_t, **kkw)
+        err[size, True] = max(assert_close(f"city vag value {size}^2", gv, rv),
+                              assert_kinks(f"city vag gradient {size}^2", gg, rg))
+        print(f"city path ok at {size}^2: value err {err[size, False]:.3g}, vag err"
+              f" {err[size, True]:.3g}; plain {plain_ms[size, False]:.1f} / {plain_ms[size, True]:.1f}"
+              f" ms/map", flush=True)
+        kink_probe(f"city vag gradient {size}^2", city, Xg, Yg, kw, gg, rg)
+
+    # -- 8. coverage at 256^2 ----------------------------------------------------------------
+    mixed = city.add_ris([[0.58, 0.35], [0.62, 0.35]]).add_vertex([0.45, 0.62])
+    print(f"sigmoid saturation check on the card: {pml.sigmoid_saturates(dev)}", flush=True)
+    cases = [
+        ("city_scene", Scene.city_scene(), kw),
+        ("hard logic", city, dict(max_order=1, approx=False)),
+        ("sigmoid alpha=3000", city, dict(max_order=1, approx=True, function=sigmoid,
+                                          alpha=3000.0)),
+        ("sigmoid alpha=100", city, dict(max_order=1, approx=True, function=sigmoid)),
+        ("two TX", city.update_transmitters(tx2=[0.5, 0.45]), kw),
+        ("TX grid", city, dict(kw, on_transmitters=True)),
+        ("RIS + vertex", mixed, kw),
+    ]
+    for name, sc, ckw in cases:
+        before = dict(pml.LAUNCHES)
+        got = power_map(sc, Xs, Ys, **ckw)
+        gv, gg = power_map(sc, Xs, Ys, value_and_grad=True, **ckw)
+        check(pml.LAUNCHES["power_map_looped_value"] > before["power_map_looped_value"]
+              and pml.LAUNCHES["power_map_looped_vag"] > before["power_map_looped_vag"],
+              f"{name}: the looped kernels did not run")
+        a, kk, gates, _ = request(sc, Xs, Ys, ckw)
+        ia, _, _, _ = request(sc, Xs, Ys, ckw, cull=False, shadow=False)
+        print(f"  {name}: gates (cull, shadow) {gates}", flush=True)
+        assert_close(f"{name} value", got.reshape(-1), pml.plain_looped_value(*a))
+        rv, rg = pml.plain_looped_value_and_grad(*a)
+        assert_close(f"{name} vag value", gv.reshape(-1), rv)
+        assert_kinks(f"{name} vag gradient", gg.reshape(-1, 2), rg)
+        equal(f"{name} value", got.reshape(-1), pml.value(*ia, **kk))
+        iv, ig = pml.value_and_grad(*ia, **kk)
+        equal(f"{name} vag", torch.cat([gv.reshape(-1), gg.reshape(-1)]),
+              torch.cat([iv, ig.reshape(-1)]))
+
+    # -- 9. autograd through the looped value kernel ------------------------------------------
+    Xa, Ya = city_grid(64, dev)
+
+    def scene_grads(backend):
+        walls = city.walls.detach().clone().requires_grad_(True)
+        tx = city.transmitters["tx"].detach().clone().requires_grad_(True)
+        alpha = torch.tensor(100.0, device=dev, requires_grad=True)
+        sc = Scene.from_arrays(walls, city.kind, city.phi, {"tx": tx}, city.receivers)
+        out = power_map(sc, Xa, Ya, max_order=1, approx=True, alpha=alpha, backend=backend)
+        return (out, *torch.autograd.grad(out.sum(), (walls, tx, alpha)))
+
+    before = pml.LAUNCHES["power_map_looped_value"]
+    got = scene_grads("auto")
+    check(pml.LAUNCHES["power_map_looped_value"] > before, "autograd: the looped kernel did not run")
+    ref = scene_grads("torch")
+    for name, a, b in zip(("value", "d/dwalls", "d/dtx", "d/dalpha"), got, ref):
+        assert_close(f"city autograd {name}", a, b)
+    print("autograd through the looped kernel ok", flush=True)
+
+    # -- 10. timing ----------------------------------------------------------------------------
+    rows = []
+    k, reps = 8, 5
+    for size, (Xt, Yt), a_t, i_t in ((n, (X, Y), args, ident), (m, (Xs, Ys), a256, None)):
+        P = Xt.numel()
+        if i_t is None:
+            i_t, _, _, _ = request(city, Xt, Yt, kw, cull=False, shadow=False)
+        plan = a_t[-1]
+        tables_mb = sum(tp.tables.nbytes for tp in plan.per_tx) / 1e6
+        replan = request(city, Xt, Yt, kw)[3]
+        build_ms = cuda_time_ms(replan, k, reps)
+        e2e = {g: cuda_time_ms(lambda g=g: power_map(city, Xt, Yt, value_and_grad=g, **kw), k, reps)
+               for g in (False, True)}
+        print(f"city {size}^2: table build {build_ms:.4f} ms/map ({tables_mb:.2f} MB of tables);"
+              f" end to end power_map value {e2e[False]:.4f} ms/map ({P / e2e[False] * 1e3:.4g}"
+              f" points/s), value+grad {e2e[True]:.4f} ms/map ({P / e2e[True] * 1e3:.4g}"
+              f" points/s)", flush=True)
+        for name, with_grad in (("power_map_looped_value", False),
+                                ("power_map_looped_vag", True)):
+            fn = pml.value_and_grad if with_grad else pml.value
+            before = pml.LAUNCHES[name]
+            ms = cuda_time_ms(lambda: fn(*a_t, **kkw), k, reps)
+            per_map = (pml.LAUNCHES[name] - before) / (k * reps + 1)
+            ident_ms = cuda_time_ms(lambda: fn(*i_t, **kkw), k, reps)
+            ops_all, tests_all, kept_all = ops_left(i_t[-1], a_t[6], city.kinds, with_grad)
+            ops, tests, kept = ops_left(plan, a_t[6], city.kinds, with_grad)
+            per_px, per_launch = ops_count(a_t[6].groups, city.kinds, 1, with_grad)
+            check(ops_all == P * per_px + per_launch,
+                  f"identity-table count {ops_all} != ops_count {P * per_px + per_launch}")
+            out_b = P * (8 + (12 if with_grad else 4))
+            t_bytes = (out_b + tables_mb * 1e6) / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / peak_fp32 * 1e3
+            t_ops_all = ops_all / peak_fp32 * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound_all = max(out_b / HBM_BYTES_PER_S * 1e3, t_ops_all)
+            line = (f"{name} {size}^2: culled {ms:.4f} ms/map ({P / ms * 1e3:.4g} points/s,"
+                    f" {per_map:g} launches/map), identity tables (B3) {ident_ms:.4f} ms/map;"
+                    f" bound (tables' work) {bound_ms:.4f} ms = {bound_ms / ms:.1%} of culled;"
+                    f" bound (unculled) {bound_all:.4f} ms = {bound_all / ident_ms:.1%} of B3,"
+                    f" {bound_all / ms:.1%} of culled; kept {kept / kept_all:.1%} of"
+                    f" candidate-pixels, {tests / tests_all:.1%} of blocked tests"
+                    f" ({ops / P:.0f} vs {ops_all / P:.0f} ops/px);"
+                    f" plain {plain_ms[size, with_grad]:.1f} ms/map (one call)")
+            print(line, flush=True)
+            if size == n:
+                rows.append({
+                    "name": name, "route": "cuda", "source": LOOPED_SOURCE,
+                    "replaces": LOOPED_REPLACES, "launches": launches[name],
+                    "max_abs_err": err[size, with_grad], "ms": ms,
+                    "plain_ms": plain_ms[size, with_grad], "bound_ms": bound_ms,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": None,
+                })
+    return rows
 
 
 if __name__ == "__main__":

@@ -128,12 +128,15 @@ def _on_objects(pts, cw, ckind, approx: bool, alpha, function) -> torch.Tensor:
 
 def _blocked(
     pts_full, cand, arrays: SceneArrays, patch, approx: bool, alpha, function,
-    tol_intersect: float = 0.005,
+    tol_intersect: float = 0.005, listed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Soft/hard OR over "segment s is blocked by non-adjacent object w".
 
     Every path segment is tested against every wall, with the two objects
     adjacent to the segment masked out and vertices never blocking.
+    ``listed`` (bool, broadcastable to ``[P, C, S, W]``) masks out the walls
+    off a segment's occluder list as well (the looped kernels' plain
+    version).
     """
     P, C = pts_full.shape[0], pts_full.shape[1]
     W = arrays.num_objects
@@ -162,6 +165,8 @@ def _blocked(
     wall_ids = torch.arange(W, device=cand.device)[None, None, :]
     ignore = (wall_ids == idx[:, :-1, None]) | (wall_ids == idx[:, 1:, None])
     ignore = ignore | (arrays.kind == KIND_VERTEX)[None, None, :]
+    if listed is not None:
+        ignore = ignore | ~listed
 
     if approx:
         hit = torch.where(ignore, torch.zeros_like(hit), hit)
@@ -178,11 +183,12 @@ def _received_power_batched(pts_full, order: int, r_coef, height) -> torch.Tenso
 
 def _trace_group(
     tx, rx, arrays: SceneArrays, order: int, cand: torch.Tensor, *,
-    approx: bool, alpha, function, tol, patch,
+    approx: bool, alpha, function, tol, patch, listed=None,
 ):
     """Solve and validate one order group of candidates (image solver).
 
-    ``tx``/``rx`` are ``[P or 1, 1, 2]``; ``cand`` is ``long[C, order]``.
+    ``tx``/``rx`` are ``[P or 1, 1, 2]``; ``cand`` is ``long[C, order]``;
+    ``listed`` restricts the blocked test (see :func:`_blocked`).
 
     :return: ``(pts_full[P, C, order+2, 2], loss[P, C], valid[P, C])``.
     """
@@ -203,7 +209,7 @@ def _trace_group(
         loss = _bounce_residuals(pts_full, cw, ckind, cphi)
 
     on = _on_objects(pts, cw, ckind, approx, alpha, function)
-    blk = _blocked(pts_full, cand, arrays, patch, approx, alpha, function)
+    blk = _blocked(pts_full, cand, arrays, patch, approx, alpha, function, listed=listed)
     if approx:
         loss_ok = function(tol - loss, alpha)
         valid = torch.minimum(torch.minimum(on, 1.0 - blk), loss_ok)

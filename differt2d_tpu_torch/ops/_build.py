@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of this package.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
+Each source under ``csrc/`` (with the shared headers ``csrc/*.cuh`` it
+includes) is compiled by ``nvcc`` into a shared library
 with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so
 a build takes seconds).  Builds happen at first use, never at import,
 into ``build/differt2d_tpu_torch/`` beside the package, under a file name
@@ -52,9 +53,17 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where the library of ``source`` (a file name under ``csrc/``) goes."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library of ``source`` (a file name under ``csrc/``) goes.
+
+    The name hashes the source, every shared header under ``csrc/`` and
+    the flags.
+    """
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    digest = h.hexdigest()
     stem = os.path.splitext(source)[0]
     return os.path.join(build_dir(), f"lib{stem}_{digest[:16]}.so")
 

@@ -82,16 +82,13 @@ class KernelInputs:
     eager: eager.EagerSpec
 
 
-def kernel_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> KernelInputs:
-    """Cached :class:`KernelInputs`, keyed on content, not on identity.
-
-    The key is what the entry derives from: the candidate rows, the logic
-    mode and the device, so two scenes of the same structure share an
-    entry.  Wall coordinates, kinds and RIS phases are not in it: the
-    kernels read them from the scene's tensors at every launch, so they can
-    never be stale.  A bounded LRU.
-    """
+def cached_inputs(kind: str, groups: dict, device, approx: bool, sigmoid: bool, make):
+    """``make()`` cached under ``kind`` and the content of its inputs (the
+    candidate rows, the logic mode, the device), not their identity, so two
+    scenes of the same structure share an entry.  A bounded LRU, shared by
+    the unrolled and the looped kernels' inputs."""
     key = (
+        kind,
         tuple((o, g.shape, g.tobytes()) for o, g in sorted(groups.items())),
         bool(approx),
         bool(sigmoid),
@@ -101,28 +98,42 @@ def kernel_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> Kerne
     if hit is not None:
         _INPUTS_CACHE.move_to_end(key)
         return hit
-    table = np.zeros((sum(g.shape[0] for g in groups.values()), MAX_ORDER + 1), np.int32)
-    start = 0
-    for o, g in sorted(groups.items()):
-        if o <= MAX_ORDER:
-            table[start : start + g.shape[0], 0] = o
-            table[start : start + g.shape[0], 1 : o + 1] = g
-        start += g.shape[0]
-    max_order = max((o for o, g in groups.items() if g.shape[0]), default=0)
-    entry = KernelInputs(
-        cand=torch.from_numpy(table).to(device) if max_order <= MAX_ORDER else None,
-        num_candidates=int(table.shape[0]),
-        max_order=max_order,
-        eager=eager.EagerSpec(
-            groups=eager.make_groups(groups, device),
-            approx=bool(approx),
-            function=logic.sigmoid if sigmoid else logic.hard_sigmoid,
-        ),
-    )
+    entry = make()
     _INPUTS_CACHE[key] = entry
     while len(_INPUTS_CACHE) > _INPUTS_CACHE_MAX:
         _INPUTS_CACHE.popitem(last=False)
     return entry
+
+
+def kernel_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> KernelInputs:
+    """Cached :class:`KernelInputs` (:func:`cached_inputs`).
+
+    Wall coordinates, kinds and RIS phases are not in the key: the kernels
+    read them from the scene's tensors at every launch, so they can never
+    be stale.
+    """
+
+    def make():
+        table = np.zeros((sum(g.shape[0] for g in groups.values()), MAX_ORDER + 1), np.int32)
+        start = 0
+        for o, g in sorted(groups.items()):
+            if o <= MAX_ORDER:
+                table[start : start + g.shape[0], 0] = o
+                table[start : start + g.shape[0], 1 : o + 1] = g
+            start += g.shape[0]
+        max_order = max((o for o, g in groups.items() if g.shape[0]), default=0)
+        return KernelInputs(
+            cand=torch.from_numpy(table).to(device) if max_order <= MAX_ORDER else None,
+            num_candidates=int(table.shape[0]),
+            max_order=max_order,
+            eager=eager.EagerSpec(
+                groups=eager.make_groups(groups, device),
+                approx=bool(approx),
+                function=logic.sigmoid if sigmoid else logic.hard_sigmoid,
+            ),
+        )
+
+    return cached_inputs("unrolled", groups, device, approx, sigmoid, make)
 
 
 # -- plain versions -------------------------------------------------------------
@@ -263,57 +274,71 @@ class PowerMapFunction(torch.autograd.Function):
     def forward(ctx, px, py, txs, walls, phi, scal, kind, host_scalars, inputs,
                 approx, sigmoid):
         ctx.save_for_backward(px, py, txs, walls, phi, scal, kind)
-        ctx.inputs = inputs
+        ctx.eager = inputs.eager
         return value(px, py, txs, walls, kind, phi, host_scalars, inputs,
                      approx=approx, sigmoid=sigmoid)
 
     @staticmethod
     def backward(ctx, g):
-        px, py, txs, walls, phi, scal, kind = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        pixels = torch.stack([px, py], dim=-1)
-        gpix, gtx, gwalls, gphi, gscal = eager.eager_vjp(
-            pixels, txs, walls, kind, phi, scal, ctx.inputs.eager, g.contiguous(),
-            needs=(need[0] or need[1], need[2], need[3], need[4], need[5]),
-        )
-        gpx = gpix[:, 0] if need[0] else None
-        gpy = gpix[:, 1] if need[1] else None
-        return gpx, gpy, gtx, gwalls, gphi, gscal, None, None, None, None, None
+        return (*eager_backward(ctx, g), None, None, None, None, None)
+
+
+def eager_backward(ctx, g):
+    """Gradients of ``(px, py, txs, walls, phi, scal)`` from the plain
+    version's VJP, for a Function that saved those tensors and ``kind``
+    and set ``ctx.eager`` (its :class:`eager.EagerSpec`)."""
+    px, py, txs, walls, phi, scal, kind = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    pixels = torch.stack([px, py], dim=-1)
+    gpix, gtx, gwalls, gphi, gscal = eager.eager_vjp(
+        pixels, txs, walls, kind, phi, scal, ctx.eager, g.contiguous(),
+        needs=(need[0] or need[1], need[2], need[3], need[4], need[5]),
+    )
+    gpx = gpix[:, 0] if need[0] else None
+    gpy = gpix[:, 1] if need[1] else None
+    return gpx, gpy, gtx, gwalls, gphi, gscal
+
+
+def request_tensors(scene, X, Y, on_transmitters: bool):
+    """``(px[P], py[P], txs[T, 2], walls)`` of a map request on the ``X``/``Y``
+    grids, each contiguous.  With ``on_transmitters`` the scene's ends are
+    swapped (path reversal, exact for walls and vertices; the caller keeps
+    RIS scenes off this path)."""
+    target = scene.swap_ends() if on_transmitters else scene
+    txs = (
+        torch.stack(list(target.transmitters.values()))
+        if target.transmitters
+        else torch.zeros(0, 2, device=X.device)
+    ).contiguous()
+    return X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), txs, scene.walls.contiguous()
+
+
+def tracked_scalars(tensors, scalars: tuple):
+    """``(scal[5], host scalars)`` for a differentiable value map when
+    autograd tracks one of ``tensors`` or ``scalars``, else None."""
+    tracked = torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in (*tensors, *scalars)
+    )
+    if not tracked:
+        return None
+    dev = tensors[0].device
+    scal = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev) for v in scalars])
+    return scal, tuple(_host_float(v) for v in scalars)
 
 
 def power_map_kernel(scene, X, Y, groups: dict, *, want_grad: bool, approx: bool,
                      sigmoid: bool, on_transmitters: bool, scalars: tuple):
     """Flat map of the ``X``/``Y`` grid through the kernels: ``[P]``, or
-    ``([P], [P, 2])`` with ``want_grad`` (terminal, not differentiable).
-
-    With ``on_transmitters`` the scene's ends are swapped (path reversal,
-    exact for walls and vertices; the caller keeps RIS scenes off this
-    path).
-    """
-    target = scene.swap_ends() if on_transmitters else scene
-    dev = X.device
-    txs = (
-        torch.stack(list(target.transmitters.values()))
-        if target.transmitters
-        else torch.zeros(0, 2, device=dev)
-    ).contiguous()
-    px = X.reshape(-1).contiguous()
-    py = Y.reshape(-1).contiguous()
-    walls = scene.walls.contiguous()
-    inputs = kernel_inputs(groups, dev, approx=approx, sigmoid=sigmoid)
+    ``([P], [P, 2])`` with ``want_grad`` (terminal, not differentiable)."""
+    px, py, txs, walls = request_tensors(scene, X, Y, on_transmitters)
+    inputs = kernel_inputs(groups, X.device, approx=approx, sigmoid=sigmoid)
     args = (px, py, txs, walls, scene.kind, scene.phi)
     if want_grad:
         return value_and_grad(*args, scalars, inputs, approx=approx, sigmoid=sigmoid)
-    tracked = torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad
-        for t in (px, py, txs, walls, scene.phi, *scalars)
-    )
-    if not tracked:
+    diff = tracked_scalars((px, py, txs, walls, scene.phi), scalars)
+    if diff is None:
         return value(*args, scalars, inputs, approx=approx, sigmoid=sigmoid)
-    scal = torch.stack(
-        [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in scalars]
-    )
-    host = tuple(_host_float(v) for v in scalars)
+    scal, host = diff
     return PowerMapFunction.apply(
         px, py, txs, walls, scene.phi, scal, scene.kind, host, inputs, approx, sigmoid
     )

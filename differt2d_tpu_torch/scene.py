@@ -10,12 +10,19 @@ reading them never waits for the device.
 The object API of the JAX package (``Wall``, ``RIS``, ``Vertex`` and the
 scene algebra) is not ported yet; :attr:`Scene.objects` gives light
 records for ``filter_objects`` callbacks.
+
+The city scenes read GeoJSON building footprints
+(:meth:`Scene.from_geojson`); :meth:`Scene.city_extract_scene` reads the
+package's own copy of the JAX package's extract,
+``differt2d_tpu_torch/data/city_extract.geojson``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -28,6 +35,12 @@ from .defaults import (
     KIND_WALL,
     resolve_device,
 )
+
+
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+LOCATIONS = ("N", "E", "S", "W", "C", "NE", "NW", "SE", "SW")
+"""Compass anchors of :meth:`Scene.get_location`."""
 
 
 class SceneObject(NamedTuple):
@@ -176,6 +189,85 @@ class Scene:
             device=device,
         )
 
+    @classmethod
+    def from_geojson(
+        cls, s_or_fp, tx_loc: str = "NW", rx_loc: str = "SE", *, device=DEFAULT_DEVICE
+    ) -> "Scene":
+        """Scene from a GeoJSON string, bytes or file-like: one wall per edge
+        of each polygon's outer ring (the first edge closes the ring), TX and
+        RX at compass anchors of the walls' bounding box
+        (``differt2d_tpu.scene.Scene.from_geojson``)."""
+        if hasattr(s_or_fp, "read"):
+            return cls.from_geojson(s_or_fp.read(), tx_loc, rx_loc, device=device)
+        if not isinstance(s_or_fp, (str, bytes, bytearray)):
+            msg = f"Unsupported type {type(s_or_fp)}"
+            raise NotImplementedError(msg)
+        walls = []
+        for feature in json.loads(s_or_fp).get("features", []):
+            geometry = feature.get("geometry", None)
+            if geometry and geometry["type"] == "Polygon":
+                ring = geometry["coordinates"][0]
+                walls += [[ring[i - 1], ring[i]] for i in range(len(ring))]
+        if not walls:
+            return cls.from_arrays(
+                np.zeros((0, 2, 2), np.float32), transmitters={"tx": [0.0, 0.0]},
+                receivers={"rx": [1.0, 1.0]}, device=device,
+            )
+        scene = cls.from_arrays(np.asarray(walls, np.float32), device=device)
+        return scene.replace(
+            transmitters={"tx": scene.get_location(tx_loc)},
+            receivers={"rx": scene.get_location(rx_loc)},
+        )
+
+    @classmethod
+    def city_extract_scene(
+        cls, tx_loc: str = "NW", rx_loc: str = "SE", *, device=DEFAULT_DEVICE
+    ) -> "Scene":
+        """The synthetic OSM-style city extract: 23 buildings, 136 oblique
+        walls (``differt2d_tpu.scene.Scene.city_extract_scene``)."""
+        with open(os.path.join(_DATA_DIR, "city_extract.geojson")) as fp:
+            return cls.from_geojson(fp.read(), tx_loc, rx_loc, device=device)
+
+    @classmethod
+    def city_scene(
+        cls,
+        blocks: tuple = (5, 6),
+        street: float = 0.06,
+        margin: float = 0.03,
+        *,
+        device=DEFAULT_DEVICE,
+    ) -> "Scene":
+        """Manhattan-style city: ``blocks[0] x blocks[1]`` rectangular
+        buildings separated by streets in the unit square (120 walls by
+        default), TX at the central street crossing and RX mid-block in
+        the street east of it (``differt2d_tpu.scene.Scene.city_scene``)."""
+        nx, ny = blocks
+        bw = (1.0 - 2.0 * margin - (nx - 1) * street) / nx
+        bh = (1.0 - 2.0 * margin - (ny - 1) * street) / ny
+        if bw <= 0 or bh <= 0:
+            msg = f"blocks {blocks} do not fit with street={street}"
+            raise ValueError(msg)
+        features = []
+        for i in range(nx):
+            for j in range(ny):
+                x0 = margin + i * (bw + street)
+                y0 = margin + j * (bh + street)
+                x1, y1 = x0 + bw, y0 + bh
+                ring = [[x0, y0], [x1, y0], [x1, y1], [x0, y1]]
+                features.append(
+                    {"type": "Feature", "geometry": {"type": "Polygon", "coordinates": [ring]}}
+                )
+        scene = cls.from_geojson(
+            json.dumps({"type": "FeatureCollection", "features": features}), device=device
+        )
+        cross_x = margin + (nx // 2) * (bw + street) - street / 2.0
+        cross_y = margin + (ny // 2) * (bh + street) - street / 2.0
+        rx_x = margin + (nx // 2 + 1) * (bw + street) + bw / 2.0
+        return scene.replace(
+            transmitters={"tx": _f32([cross_x, cross_y], scene.device)},
+            receivers={"rx": _f32([rx_x, cross_y], scene.device)},
+        )
+
     # -- derivation ----------------------------------------------------------
 
     @property
@@ -260,6 +352,22 @@ class Scene:
         pts += [v.detach().reshape(1, 2) for v in self.receivers.values()]
         allp = torch.cat(pts)
         return torch.stack([allp.amin(dim=0), allp.amax(dim=0)])
+
+    def get_location(self, location: str) -> torch.Tensor:
+        """Compass anchor (one of :data:`LOCATIONS`) of the bounding box, as
+        ``differt2d_tpu.abc.Object.get_location`` computes it in float32."""
+        if location not in LOCATIONS:
+            msg = f"location must be one of {LOCATIONS}, got {location!r}"
+            raise ValueError(msg)
+        (xmin, ymin), (xmax, ymax) = self.bounding_box()
+        xavg = 0.5 * (xmin + xmax)
+        yavg = 0.5 * (ymin + ymax)
+        x, y = {
+            "N": (xavg, ymax), "E": (xmax, yavg), "S": (xavg, ymin),
+            "W": (xmin, yavg), "C": (xavg, yavg), "NE": (xmax, ymax),
+            "NW": (xmin, ymax), "SE": (xmax, ymin), "SW": (xmin, ymin),
+        }[location]
+        return torch.stack([x, y])
 
     def grid(self, m: int = 50, n: Optional[int] = None):
         """Meshgrid ``(X, Y)`` of ``m`` x ``n`` points over the bounding box

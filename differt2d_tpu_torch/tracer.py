@@ -1,11 +1,14 @@
 """The power-map entry point and its dispatch.
 
 Counterpart of the entry part of :mod:`differt2d_tpu.tracer`:
-:func:`power_map` sends each request either to the CUDA kernels of
-:mod:`differt2d_tpu_torch.ops.power_map_kernel` (``"cuda"``) or to the
-batched eager tracer of :mod:`differt2d_tpu_torch.eager` (``"torch"``), by
-the rules the JAX package uses to choose its Pallas kernels
-(:func:`_kernel_eligible`).  Pixel gradients come from autograd: the map is
+:func:`power_map` sends each request to the unrolled CUDA kernels of
+:mod:`differt2d_tpu_torch.ops.power_map_kernel` (``"cuda"``), to the looped
+ones of :mod:`differt2d_tpu_torch.ops.power_map_looped` (``"looped"``,
+candidates of order <= 1) or to the batched eager tracer of
+:mod:`differt2d_tpu_torch.eager` (``"torch"``), by the rules the JAX package
+uses to choose its Pallas kernels (:func:`_kernel_eligible`), and sets the
+looped kernels' culling gates as ``get_fused_run`` does (:func:`_looped_gates`).
+Pixel gradients of the eager route come from autograd: the map is
 independent per pixel, so the backward of ``Z.sum()`` with respect to the
 pixels is the pixel gradient.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from .defaults import (
@@ -30,7 +34,8 @@ from .defaults import (
 from .eager import EagerSpec, SceneArrays, eager_value, eager_value_and_grad, make_groups
 from . import logic
 from .logic import hard_sigmoid, sigmoid
-from .ops import power_map_kernel
+from .ops import power_map_kernel, power_map_looped
+from .ops.cull_tables import _SIGMOID_Z0
 from .rt import path_candidate_matrices
 
 __all__ = ("KIND_RIS", "KIND_VERTEX", "KIND_WALL", "SceneArrays", "power_map")
@@ -140,7 +145,8 @@ def _kernel_eligible(
     take their defaults); ``groups`` are the request's candidates (derived
     from ``kw`` when not given).  The reason of an eligible request names
     the kernel family the JAX package would pick (``"unrolled"``,
-    ``"looped"`` or ``"solver"``); only the unrolled one is ported.
+    ``"looped"`` or ``"solver"``); the unrolled one is ported, and the
+    looped one for candidates of order <= 1.
     """
     kw = {**_OPTIONS, **kw}
     solver = kw["solver"]
@@ -180,22 +186,28 @@ def _kernel_eligible(
     proxy = stream_proxy(groups, scene.num_objects)
     limit = _UNROLLED_MAX_PROXY_GRAD if grad else _UNROLLED_MAX_PROXY_VALUE
     if proxy > limit:
+        if _max_order(groups) <= power_map_looped.MAX_ORDER:
+            return True, (
+                f"looped kernel: stream proxy {proxy} > {limit}"
+                " (build_power_map_kernel_looped, orders <= 1: power_map_looped)"
+            )
         return True, (
             f"looped kernel: stream proxy {proxy} > {limit}"
-            " (build_power_map_kernel_looped), not yet ported"
-            " (ROADMAP §1 item 8)"
+            " (build_power_map_kernel_looped), not yet ported above order 1:"
+            " the next slice, ROADMAP §1 item 8b (B5b with pair_occlusion_dead)"
         )
     return True, f"unrolled kernel: stream proxy {proxy} <= {limit}"
 
 
 def _route(scene, kw: dict, groups: dict, backend: str, *, grad: bool) -> str:
-    """``"cuda"`` or ``"torch"`` for this request, or raise.
+    """``"cuda"``, ``"looped"`` or ``"torch"`` for this request, or raise.
 
     Fermat/MPT solves are not ported on either route, so they raise.
-    ``"auto"`` takes the kernel wherever the JAX package takes its unrolled
-    kernel, and the eager tracer wherever it takes its XLA tracer.  Where
-    it would take a kernel that is not ported yet, it raises: it never
-    runs such a request somewhere slower without being asked.
+    ``"auto"`` takes the unrolled or looped kernels wherever the JAX package
+    takes them, and the eager tracer wherever it takes its XLA tracer.
+    Where it would take a kernel that is not ported yet (the looped one
+    above order 1), it raises: it never runs such a request somewhere
+    slower without being asked.  ``"cuda"`` means either kernel family.
     """
     ok, reason = _kernel_eligible(scene, kw, grad=grad, groups=groups)
     if kw["solver"] not in ("image", "fermat", "mpt"):
@@ -213,14 +225,42 @@ def _route(scene, kw: dict, groups: dict, backend: str, *, grad: bool) -> str:
             msg = f"backend='cuda' does not cover this request: {reason}"
             raise ValueError(msg)
         return "torch"
-    if not reason.startswith("unrolled"):
+    if reason.startswith("unrolled"):
+        route, caps = "cuda", power_map_kernel.kernel_caps_reason
+    elif reason.startswith("looped") and "power_map_looped" in reason:
+        route, caps = "looped", power_map_looped.kernel_caps_reason
+    else:
         msg = f"{reason}; pass backend='torch' to run it on the eager tracer"
         raise NotImplementedError(msg)
-    cap = power_map_kernel.kernel_caps_reason(scene.num_objects, _max_order(groups))
+    cap = caps(scene.num_objects, _max_order(groups))
     if cap is not None:
         msg = f"{cap}; pass backend='torch' to run it on the eager tracer"
         raise NotImplementedError(msg)
-    return "cuda"
+    return route
+
+
+def _looped_gates(scene, kw: dict, groups: dict) -> tuple[bool, bool]:
+    """``(cull, shadow)`` of a looped request, by ``get_fused_run``'s gates
+    (``pallas_kernels.py:3985-4059``).
+
+    Candidate sets of vertices only have no bounce to cull (identity keep
+    tables; the occluder lists stay).  Sigmoid maps need the kernels'
+    sigmoid to saturate exactly (:func:`power_map_looped.sigmoid_saturates`
+    on the scene's device) and a band ``Z0 / alpha`` under a quarter of the
+    scene's diagonal; otherwise both tables are identity tables.
+    """
+    any_cullable = any(
+        o >= 1 and g.size and any(scene.kinds[i] != KIND_VERTEX for i in np.ravel(g))
+        for o, g in groups.items()
+    )
+    approx, sig = bool(kw["approx"]), kw["function"] is sigmoid
+    ok = True
+    if approx and sig:
+        walls = scene.walls.detach().reshape(-1, 2).cpu().numpy()
+        diag = float(np.sqrt(np.sum((walls.max(axis=0) - walls.min(axis=0)) ** 2))) or 1.0
+        band = _SIGMOID_Z0 / max(float(kw["alpha"]), 1e-6)
+        ok = band < 0.25 * diag and power_map_looped.sigmoid_saturates(scene.device)
+    return any_cullable and ok, ok
 
 
 def power_map(
@@ -242,11 +282,14 @@ def power_map(
     fixed node adds ``valid * r_coef**order / (height**2 + r**2)``.
 
     ``backend``: ``"auto"`` runs the CUDA kernels for every request they
-    cover and the eager tracer for requests the JAX package sends to its
-    XLA tracer; it raises for requests the JAX package sends to a kernel
-    not ported yet.  ``"cuda"`` forces the kernels (and raises on what
-    they do not cover); ``"torch"`` forces the eager tracer.  On a CPU
-    device the kernels' plain PyTorch versions stand in for them.
+    cover (the unrolled ones for small candidate streams, the looped,
+    culled ones for city-scale scenes at orders <= 1) and the eager tracer
+    for requests the JAX package sends to its XLA tracer; it raises for
+    requests the JAX package sends to a kernel not ported yet (looped
+    maps above order 1, Fermat/MPT solves).  ``"cuda"`` forces the kernels
+    (and raises on what they do not cover); ``"torch"`` forces the eager
+    tracer.  On a CPU device the kernels' plain PyTorch versions stand in
+    for them.
 
     ``device`` defaults to ``"cuda"``; without a GPU, pass ``"cpu"``.
 
@@ -282,7 +325,15 @@ def power_map(
     want_grad = grad or value_and_grad
     groups = _groups_for(scene, kw)
     route = _route(scene, kw, groups, backend, grad=want_grad)
-    if route == "cuda":
+    if route == "looped":
+        cull, shadow = _looped_gates(scene, kw, groups)
+        Z = power_map_looped.power_map_looped(
+            scene, X, Y, groups, want_grad=want_grad,
+            approx=kw["approx"], sigmoid=kw["function"] is sigmoid,
+            on_transmitters=kw["on_transmitters"],
+            scalars=tuple(kw[name] for name in _SCALAR_NAMES), cull=cull, shadow=shadow,
+        )
+    elif route == "cuda":
         Z = power_map_kernel.power_map_kernel(
             scene, X, Y, groups, want_grad=want_grad,
             approx=kw["approx"], sigmoid=kw["function"] is sigmoid,

@@ -8,7 +8,8 @@ machine without them (the repository's conftest imports JAX, hence
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 inputs: values at rtol 1e-4 / atol 1e-5, gradients under the kink contract
-at rtol 1e-3 / atol 1e-5.
+at rtol 1e-3 / atol 1e-5.  The looped kernels' culled maps must also equal
+their identity-table maps bit for bit.
 """
 
 import pytest
@@ -76,3 +77,57 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         pmk.value(px.double(), py.double(), txs, walls, kind, phi, scal, inputs, **kw)
     with pytest.raises(ValueError, match="expected"):
         pmk.value_and_grad(px, py, txs.cpu(), walls, kind, phi, scal, inputs, **kw)
+
+
+# -- the looped kernels (city path) ---------------------------------------------------
+
+from differt2d_tpu_torch.ops import power_map_looped as pml  # noqa: E402
+
+
+def _looped(scene, n, approx, sigmoid, dev, cull=True):
+    X, Y = torch.meshgrid(
+        torch.linspace(0.02, 0.98, n, device=dev),
+        torch.linspace(0.015, 0.985, n, device=dev),
+        indexing="xy",
+    )
+    groups = path_candidate_matrices(scene.num_objects, 0, 1)
+    inputs = pml.looped_inputs(groups, dev, approx=approx, sigmoid=sigmoid)
+    txs = torch.stack(list(scene.transmitters.values())).contiguous()
+    scal = (100.0, 1e-2, 0.0, 0.5, 0.1)
+    plan = pml.make_plan(X, Y, txs, scene.walls, scene.kind, scal, inputs, approx=approx,
+                         sigmoid=sigmoid, cull=cull, shadow=cull)
+    return (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), scene.walls,
+            scene.kind, scene.phi, scal, inputs, plan)
+
+
+@pytest.mark.parametrize("mode", ["hard", "hard_sigmoid"])
+@pytest.mark.parametrize("name", ["city_extract", "city_two_tx"])
+def test_looped_kernels_match_plain_and_identity_tables(cuda, name, mode):
+    scene = Scene.city_extract_scene(device=cuda)
+    if name == "city_two_tx":
+        scene = Scene.city_scene(device=cuda).update_transmitters(tx2=[0.5, 0.45])
+    approx = mode != "hard"
+    kw = dict(approx=approx, sigmoid=False)
+    args = _looped(scene, 64, approx, False, cuda)
+    ident = _looped(scene, 64, approx, False, cuda, cull=False)
+    before = dict(pml.LAUNCHES)
+    got = pml.value(*args, **kw)
+    gv, gg = pml.value_and_grad(*args, **kw)
+    iv = pml.value(*ident, **kw)
+    ivv, ig = pml.value_and_grad(*ident, **kw)
+    torch.cuda.synchronize()
+    n_tx = len(args[-1].per_tx)
+    assert pml.LAUNCHES["power_map_looped_value"] == before["power_map_looped_value"] + 2 * n_tx
+    assert pml.LAUNCHES["power_map_looped_vag"] == before["power_map_looped_vag"] + 2 * n_tx
+    assert torch.equal(got, iv) and torch.equal(gv, ivv) and torch.equal(gg, ig)
+    ref = pml.plain_looped_value(*args)
+    rv, rg = pml.plain_looped_value_and_grad(*args)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gv, rv, rtol=1e-4, atol=1e-5)
+    n_bad, allowed = kink_excess(gg, rg, rtol=1e-3, atol=1e-5)
+    assert n_bad <= allowed
+
+
+def test_looped_sigmoid_probe_saturates(cuda):
+    pml._SIGMOID_SATURATES.pop(str(cuda), None)
+    assert pml.sigmoid_saturates(cuda)

@@ -13,6 +13,7 @@ and the kernel route's autograd backward.
   tracer's gradients.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -70,21 +71,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert power_map(scene, X, Y, device="cpu").shape == (4, 4)
 
 
+@functools.lru_cache(maxsize=None)
 def _scenes():
     jbasic = JScene.basic_scene()
     jris = JScene.square_scene().add_objects(RIS(xys=jnp.array([[0.5, 0.3], [0.5, 0.7]])))
     jvert = JScene.square_scene().add_objects(
         Vertex(xy=jnp.array([0.3, 0.6])), Vertex(xy=jnp.array([0.7, 0.2]))
     )
+    jcity = JScene.city_extract_scene()
     port = {}
-    for name, js in (("basic", jbasic), ("ris", jris), ("vertex", jvert)):
+    for name, js in (("basic", jbasic), ("ris", jris), ("vertex", jvert), ("city", jcity)):
         arr = jtracer.scene_arrays(js)
         port[name] = load_scene_arrays(
             np.asarray(arr.walls), np.asarray(arr.kind), np.asarray(arr.phi),
             {k: np.asarray(p.xy) for k, p in js.transmitters.items()},
             {k: np.asarray(p.xy) for k, p in js.receivers.items()}, device="cpu",
         )
-    return {"basic": jbasic, "ris": jris, "vertex": jvert}, port
+    return {"basic": jbasic, "ris": jris, "vertex": jvert, "city": jcity}, port
 
 
 def _power(pts, order):  # a custom power model (any callable)
@@ -110,6 +113,13 @@ TABLE = [
     ("ris", {"on_transmitters": True}, None, False),
     ("vertex", {"solver": "fermat", "order": 1, "filter_objects": "vertex"}, None, False),
     ("basic", {"solver": "mpt"}, None, False),
+    ("city", {}, None, False),
+    ("city", {}, None, True),
+    ("city", {"approx": False}, None, True),
+    ("city", {"function": jsigmoid}, {"function": tsigmoid}, False),
+    ("city", {"on_transmitters": True}, None, True),
+    ("city", {"max_order": 2}, None, False),
+    ("city", {"order": 0}, None, False),
 ]
 
 
@@ -135,6 +145,11 @@ def test_kernel_eligible_matches_jax(row):
         proxy = sum(int(g.shape[0]) * arr.num_objects * (o + 1) for o, g in groups.items())
         unrolled = proxy <= (400 if grad else 1200)
         assert reason.startswith("unrolled") == unrolled, reason
+        if not unrolled:
+            # Ported up to order 1; above, the reason names the next slice.
+            ported = max(o for o, g in groups.items() if g.shape[0]) <= 1
+            assert ("power_map_looped" in reason) == ported, reason
+            assert ("next slice" in reason) == (not ported), reason
 
 
 def test_solver_kernel_requests_are_named():
