@@ -44,7 +44,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     median of 5): culled kernel, identity-table kernel, table build, end to
     end, beside the plain version's time from phase 7; both bounds (the
     unculled map's operations and those the tables leave) with the kept
-    shares.
+    shares;
+11. the solver path: ``power_map`` of the RIS map of
+    ``examples/plot_ris_power_map.py`` (``Scene.square_scene()`` with a RIS
+    at phi = pi/4, order 1, MPT, 1000 adam steps, soft logic, key
+    ``PRNGKey(1234)``, RIS-only candidates) on a 1024 x 1024 grid, and the
+    wall solves of ``square_scene`` (Fermat and MPT, 100 steps; Fermat
+    again with orders 0 and 1, whose line-of-sight group runs the unrolled
+    value kernel); the solver and unrolled launch counters are zeroed just
+    before each map and read just after, and the solver kernel must have
+    run in each (the unrolled one for the line of sight); each kernel is
+    held against its plain version (the eager solve) on the same 1024 x 1024
+    inputs: Fermat at rtol 1e-3 / atol 1e-4, MPT under the flip contract
+    (at most 0.5% of pixels beyond 0.05 (1 + |ref|), the others within 1e-3
+    relative), each plain call timed once; for the map with the line of
+    sight, the unrolled kernel against its plain version on that group's
+    inputs, and the whole map against the eager map of the whole request;
+12. coverage at 256 x 256 through ``power_map`` against the eager route:
+    hard logic, the sigmoid with the line of sight, two transmitters and a
+    transmitter grid;
+13. autograd through ``SolverMapFunction``: the gradient of the sum of a
+    64 x 64 RIS map (100 steps) with respect to the RIS phase against the
+    eager solver's;
+14. timing at 1024 x 1024 (CUDA events, 8 maps chained, median of 5): the
+    solver kernel and ``power_map`` end to end for each map of phase 11,
+    with the bound from the operations the solve needs.
 
 The profile of one city map and the tile / refine sweep that chose the
 culling constants are in ``differt2d_tpu_torch/ops/looped_tuning.py``.
@@ -72,7 +96,9 @@ REPLACES = "differt2d_tpu/ops/pallas_kernels.py:362"
 SOURCE = "differt2d_tpu_torch/ops/csrc/power_map.cu"
 LOOPED_REPLACES = "differt2d_tpu/ops/pallas_kernels.py:2234"
 LOOPED_SOURCE = "differt2d_tpu_torch/ops/csrc/power_map_looped.cu"
-SOURCES = ("power_map.cu", "power_map_looped.cu")
+SOLVER_REPLACES = "differt2d_tpu/ops/pallas_solver.py:55"
+SOLVER_SOURCE = "differt2d_tpu_torch/ops/csrc/opt_solver.cu"
+SOURCES = ("power_map.cu", "power_map_looped.cu", "opt_solver.cu")
 
 
 def fail(msg: str) -> None:
@@ -323,6 +349,28 @@ def ops_left(plan, inputs, kinds: tuple, with_grad: bool) -> tuple[int, int, int
     return int(ops), int(tests), int(kept)
 
 
+# Operations of the culling-table build (B7, ops/cull_tables.py), counted
+# from its shapes as OPS_* above (compares, min/max, abs and the integer bit
+# packing free): per sub-box, tile and candidate, the interval bounds of one
+# bounce's wall parameter in beam_keep_tables (two affine intervals 16, the
+# denominator margin 2, four interval quotients 4, the pad 4); per tile and
+# wall, the grown hull of last_masks' _hull_mask (diagonal 6, growth 2,
+# grown corners 4).  The per-wall and per-pair work (first walls, shadow
+# geometry) is a few hundred thousand operations and is left out.
+OPS_BEAM = 26
+OPS_HULL = 12
+
+
+def table_ops(plan, num_candidates: int, num_walls: int) -> int:
+    """Operations of the order-1 table build of ``plan``, summed over its
+    transmitters."""
+    from differt2d_tpu_torch.ops.power_map_looped import REFINE
+
+    tiles = plan.per_tx[0].tables.cnt.shape[0]
+    per_tx = REFINE * REFINE * tiles * num_candidates * OPS_BEAM + tiles * num_walls * OPS_HULL
+    return per_tx * len(plan.per_tx)
+
+
 def main() -> int:
     import torch
 
@@ -347,6 +395,7 @@ def main() -> int:
     from differt2d_tpu_torch.logic import sigmoid
     from differt2d_tpu_torch.ops import _build
     from differt2d_tpu_torch.ops import power_map_kernel as pmk
+    from differt2d_tpu_torch.ops import opt_solver_kernel as osk
     from differt2d_tpu_torch.ops import power_map_looped as pml
     from differt2d_tpu_torch.rt import path_candidate_matrices
 
@@ -356,6 +405,7 @@ def main() -> int:
         built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
     pmk.load_library()
     pml.load_library()
+    osk.load_library()
     for src, (lib_path, nvcc_s) in built.items():
         print(f"build {src}: {nvcc_s:.1f} s in nvcc -> {lib_path}", flush=True)
         for line in _build.BUILD_LOG.get(src, "").splitlines():
@@ -483,6 +533,7 @@ def main() -> int:
           flush=True)
     print("library_ms: null -- no single PyTorch call computes this map", flush=True)
     rows += city_phases(dev, peak_fp32)
+    rows += solver_phases(dev, peak_fp32)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -657,6 +708,12 @@ def city_phases(dev, peak_fp32: float) -> list:
         build_ms = cuda_time_ms(replan, k, reps)
         e2e = {g: cuda_time_ms(lambda g=g: power_map(city, Xt, Yt, value_and_grad=g, **kw), k, reps)
                for g in (False, True)}
+        t_bytes = tables_mb * 1e6 / HBM_BYTES_PER_S * 1e3
+        t_ops = table_ops(plan, a_t[6].num_candidates, len(city.kinds)) / peak_fp32 * 1e3
+        print(f"city {size}^2: table build (B7) bound {max(t_bytes, t_ops):.4f} ms (by"
+              f" {'operations' if t_ops >= t_bytes else 'bytes'}: {t_bytes:.4f} ms to write the"
+              f" tables, {t_ops:.4f} ms of operations), {max(t_bytes, t_ops) / build_ms:.2%} of"
+              f" the build", flush=True)
         print(f"city {size}^2: table build {build_ms:.4f} ms/map ({tables_mb:.2f} MB of tables);"
               f" end to end power_map value {e2e[False]:.4f} ms/map ({P / e2e[False] * 1e3:.4g}"
               f" points/s), value+grad {e2e[True]:.4f} ms/map ({P / e2e[True] * 1e3:.4g}"
@@ -697,6 +754,227 @@ def city_phases(dev, peak_fp32: float) -> list:
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": None,
                 })
+    return rows
+
+
+# Operations of an order-1 Fermat/MPT solve per pixel and candidate, counted
+# as OPS_* above (selects, compares, min/max and negations free; values that
+# do not depend on the pixel, such as the bias corrections 1 - b**count,
+# once per launch): the objective and its derivative in the wall parameter
+# in closed form, and one adam step.
+OPS_STEP = {
+    ("fermat", 0): 30, ("fermat", 1): 30,  # bounce 4, two |v + eps| 16, sum 1, derivative 9
+    ("mpt", 0): 65,    # bounce 4, two unit vectors 16, reflect 8, |e|^2 5; derivative 32
+    ("mpt", 1): 42,    # bounce 4, unit vector 8, sin/cos 6, |e|^2 5; derivative 19
+}
+OPS_ADAM = 15        # moments 7, two bias divisions 2, sqrt(v + eps_root) + eps 3, step 3
+OPS_SOLVED_BOUNCE = 4  # the bounce point of the solution
+
+
+def solver_ops(cands, kinds: tuple, objective: str, steps: int, n_tx: int) -> tuple[int, int]:
+    """``(per pixel, per launch)`` operations of the solver kernel's map of
+    the order-1 candidates ``cands``: the solve, then the validity and power
+    of ``cand_ops`` with the solved bounce in place of the image step (and,
+    for MPT, the solve's last loss in place of the residual)."""
+    per_pixel = 0
+    for row in cands:
+        w = int(row[0])
+        k = kinds[w]
+        f, tested, _ = cand_ops([w], kinds, False)
+        f += OPS_SOLVED_BOUNCE - OPS_BOUNCE - (OPS_LOSS[k] if objective == "mpt" else 0)
+        per_pixel += steps * (OPS_STEP[objective, k] + OPS_ADAM) + f + OPS_TEST * tested
+    per_launch = OPS_PER_WALL * len(kinds) + 2 * steps
+    return per_pixel * n_tx + (n_tx - 1), per_launch * n_tx
+
+
+def assert_flips(name, got, ref, bound=0.005, flip_tol=0.05, rest_tol=1e-3) -> float:
+    """The MPT flip contract (PARITY.md, ``tests/test_pallas.py``): at most
+    ``bound`` of the pixels beyond ``flip_tol * (1 + |ref|)``, every other
+    within ``rest_tol`` relative."""
+    import torch
+
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    err = (got - ref).abs()
+    scale = 1.0 + ref.abs()
+    flipped = err > flip_tol * scale
+    rate = float(flipped.float().mean())
+    rest = float((err[~flipped] / scale[~flipped]).max()) if bool((~flipped).any()) else 0.0
+    check(rate <= bound and rest <= rest_tol,
+          f"{name}: {rate:.4%} of pixels flipped (bound {bound:.1%}), the others within {rest:.3g}"
+          f" relative (bound {rest_tol:g})")
+    print(f"  {name}: {int(flipped.sum())} flipped pixels ({rate:.4%}, bound {bound:.1%}),"
+          f" others within {rest:.3g} relative; max abs err {float(err.max()):.3g};"
+          f" {int((got != ref).sum())} elements differ", flush=True)
+    return float(err.max())
+
+
+def solver_phases(dev, peak_fp32: float) -> list:
+    """Phases 11-14: the order-1 Fermat/MPT solver path (RIS map and wall
+    solves of ``square_scene``, the solver kernel with the unrolled one for
+    the line of sight)."""
+    import math
+
+    import torch
+
+    from differt2d_tpu_torch import Scene, eager, power_map, prng
+    from differt2d_tpu_torch import tracer as tr
+    from differt2d_tpu_torch.logic import sigmoid
+    from differt2d_tpu_torch.ops import opt_solver_kernel as osk
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+
+    key = prng.PRNGKey(1234)
+    square = Scene.square_scene()
+    ris = square.add_ris([[0.5, 0.3], [0.5, 0.7]], phi=math.pi / 4)
+    ris_only = lambda o: o.kind == 1  # noqa: E731
+    soft = dict(approx=True, key=key)
+    maps = [  # (name, scene, power_map options, contract)
+        ("RIS MPT 1000 steps", ris,
+         dict(order=1, solver="mpt", steps=1000, filter_objects=ris_only, **soft), "mpt"),
+        ("walls Fermat", square, dict(order=1, solver="fermat", steps=100, **soft), "fermat"),
+        ("walls MPT", square, dict(order=1, solver="mpt", steps=100, **soft), "mpt"),
+        ("walls Fermat orders 0-1", square,
+         dict(min_order=0, max_order=1, solver="fermat", steps=100, **soft), "fermat"),
+    ]
+
+    def request(sc, X, Y, kw):
+        """The wrapper's inputs for ``power_map(sc, X, Y, **kw)``."""
+        o = {**tr._OPTIONS, **kw}
+        groups = tr._groups_for(sc, o)
+        check(tr._route(sc, o, groups, "auto", grad=False) == "solver",
+              "the request does not route to the solver kernel")
+        opts = tr._solver_options(o)
+        args = osk.solver_request(sc, X, Y, groups, **opts)
+        return args, dict(approx=opts["approx"], sigmoid=opts["sigmoid"]), groups
+
+    def compare(name, contract, got, ref):
+        if contract == "mpt":
+            return assert_flips(name, got, ref)
+        return assert_close(name, got, ref, dict(rtol=1e-3, atol=1e-4))
+
+    # -- 11. the solver path at full size ---------------------------------------------------
+    n = 1024
+    X, Y = city_grid(n, dev)
+    traced = []
+    trace_group = eager._trace_group
+    eager._trace_group = lambda *a, **k: traced.append(1) or trace_group(*a, **k)
+    launches, outs = {}, {}
+    for name, sc, kw, _ in maps:
+        osk.reset_launches()
+        pmk.reset_launches()
+        Z = power_map(sc, X, Y, **kw)
+        torch.cuda.synchronize()
+        launches[name] = (dict(osk.LAUNCHES), dict(pmk.LAUNCHES))
+        outs[name] = Z
+        print(f"solver path, {name}: launches {launches[name]}", flush=True)
+        check(launches[name][0]["opt_solver_value"] >= 1, f"{name}: opt_solver_value did not run")
+        los = kw.get("min_order", 1) == 0
+        check((launches[name][1]["power_map_value"] >= 1) == los,
+              f"{name}: power_map_value ran {launches[name][1]['power_map_value']} times for the"
+              f" line of sight")
+        check(Z.shape == X.shape and bool(torch.isfinite(Z).all()), f"{name}: bad map")
+        check(float(Z.sum()) > 0.0, f"{name}: the map is all zero")
+    eager._trace_group = trace_group
+    check(not traced, "the solver path ran the eager tracer")
+
+    err, plain_ms, reqs = {}, {}, {}
+    for name, sc, kw, contract in maps:
+        args, kkw, groups = request(sc, X, Y, kw)
+        reqs[name] = (args, kkw, groups, sc, kw)
+        got = osk.value(*args, **kkw)
+        ref, plain_ms[name] = timed(lambda: osk.plain_opt_value(*args))
+        err[name] = compare(f"{name} 1024^2, kernel vs plain", contract, got, ref)
+        full = got
+        if args[-1].los is not None:
+            # The line-of-sight group on this request's inputs: the unrolled
+            # kernel against its plain version, and the whole map against
+            # the eager map of the whole request.
+            los_args = (*args[:-1], args[-1].los)
+            los = pmk.value(*los_args, **kkw)
+            assert_close(f"{name} line of sight 1024^2, power_map_value vs plain", los,
+                         pmk.plain_value(*los_args))
+            full = got + los
+            whole = eager.eager_value(torch.stack(args[:2], dim=-1), *args[2:7], args[-1].eager)
+            compare(f"{name} 1024^2, both kernels vs the eager map", contract, full, whole)
+        check(torch.equal(outs[name].reshape(-1), full),
+              f"{name}: power_map's output differs from the wrappers' on the same inputs")
+        print(f"  {name}: plain {plain_ms[name]:.1f} ms (one call)", flush=True)
+
+    # -- 12. coverage at 256^2 ---------------------------------------------------------------
+    m = 256
+    Xs, Ys = city_grid(m, dev)
+    fermat = dict(order=1, solver="fermat", steps=100, **soft)
+    cases = [
+        ("hard logic MPT", square, dict(order=1, solver="mpt", steps=100, approx=False, key=key),
+         "mpt"),
+        ("sigmoid, orders 0-1", square, dict(fermat, order=None, min_order=0, max_order=1,
+                                             function=sigmoid), "fermat"),
+        ("two TX", square.update_transmitters(tx2=[0.8, 0.3]), fermat, "fermat"),
+        ("TX grid", square, dict(fermat, on_transmitters=True), "fermat"),
+    ]
+    for name, sc, kw, contract in cases:
+        before = osk.LAUNCHES["opt_solver_value"]
+        got = power_map(sc, Xs, Ys, **kw)
+        check(osk.LAUNCHES["opt_solver_value"] > before, f"{name}: the solver kernel did not run")
+        rsc, rkw = sc, kw
+        if kw.get("on_transmitters"):
+            rsc, rkw = sc.swap_ends(), {**kw, "on_transmitters": False}
+        ref = power_map(rsc, Xs, Ys, backend="torch", **rkw)
+        compare(f"{name} 256^2", contract, got, ref)
+
+    # -- 13. autograd through SolverMapFunction -------------------------------------------
+    # At 100 steps d(sum)/dphi is finite; at the map's 1000 it grows to about
+    # 1e20 through pixels whose solve has not settled.  Both routes take the
+    # eager solve's VJP, so this holds the wiring, not the gradient's value.
+    Xa, Ya = city_grid(64, dev)
+    kw = {**maps[0][2], "steps": 100}
+
+    def phi_grad(backend):
+        phi = ris.phi.detach().clone().requires_grad_(True)
+        sc = Scene.from_arrays(ris.walls, ris.kind, phi, ris.transmitters, ris.receivers)
+        out = power_map(sc, Xa, Ya, backend=backend, **kw)
+        return out, torch.autograd.grad(out.sum(), phi)[0]
+
+    before = osk.LAUNCHES["opt_solver_value"]
+    got = phi_grad("auto")
+    check(osk.LAUNCHES["opt_solver_value"] > before, "autograd: the solver kernel did not run")
+    ref = phi_grad("torch")
+    check(bool(torch.isfinite(got[1]).all()), "solver autograd: non-finite d/dphi")
+    for name, a, b in zip(("value", "d/dphi"), got, ref):
+        assert_close(f"solver autograd {name}", a, b)
+    print(f"autograd through the solver kernel ok: d(sum)/dphi = {float(got[1][-1]):.6g}"
+          f" (eager {float(ref[1][-1]):.6g})", flush=True)
+
+    # -- 14. timing ---------------------------------------------------------------------------
+    rows = []
+    P = n * n
+    k, reps = 8, 5
+    for name, sc, kw, _ in maps:
+        args, kkw, groups, sc, kw = reqs[name]
+        inputs = args[-1]
+        before = osk.LAUNCHES["opt_solver_value"]
+        ms = cuda_time_ms(lambda: osk.value(*args, **kkw), k, reps)
+        per_map = (osk.LAUNCHES["opt_solver_value"] - before) / (k * reps + 1)
+        e2e = cuda_time_ms(lambda: power_map(sc, X, Y, **kw), k, reps)
+        ops_px, ops_launch = solver_ops(groups[1], sc.kinds, inputs.objective, inputs.steps,
+                                        args[2].shape[0])
+        bytes_moved = P * 12 + 4 * inputs.bc.numel()
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = (P * ops_px + ops_launch) / peak_fp32 * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"opt_solver_value, {name} 1024^2: {ms:.4f} ms/map ({P / ms * 1e3:.4g} points/s,"
+              f" {per_map:g} launches/map); end to end power_map {e2e:.4f} ms/map; bound"
+              f" {bound_ms:.4f} ms ({ops_px} ops/px), {bound_ms / ms:.1%} of the kernel's time;"
+              f" plain {plain_ms[name]:.1f} ms/map (one call)", flush=True)
+        if name == maps[0][0]:
+            rows.append({
+                "name": "opt_solver_value", "route": "cuda", "source": SOLVER_SOURCE,
+                "replaces": SOLVER_REPLACES,
+                "launches": launches[name][0]["opt_solver_value"], "max_abs_err": err[name],
+                "ms": ms, "plain_ms": plain_ms[name], "bound_ms": bound_ms,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            })
+    print("library_ms: null -- no single PyTorch call computes the solve", flush=True)
     return rows
 
 

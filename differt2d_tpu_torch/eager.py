@@ -1,7 +1,8 @@
 """Batched grid tracer in eager PyTorch: the plain version of the kernels.
 
-Counterpart of the batched part of :mod:`differt2d_tpu.tracer` (the image
-solver, the validity tests and the power model, ``tracer.py:140-508``).
+Counterpart of the batched part of :mod:`differt2d_tpu.tracer` (the image,
+Fermat and MPT solvers, the validity tests and the power model,
+``tracer.py:140-508``).
 The JAX package vmaps a per-pixel function over the pixel axis; here the
 pixel axis is written out, and every step is tensor code over
 ``[pixels, candidates, segments, walls]``:
@@ -12,19 +13,22 @@ pixel axis is written out, and every step is tensor code over
 
 :func:`eager_value`, :func:`eager_value_and_grad` and :func:`eager_vjp` are
 the plain PyTorch versions of the CUDA kernels
-(:mod:`differt2d_tpu_torch.ops.power_map_kernel`) and the eager route of
+(:mod:`differt2d_tpu_torch.ops.power_map_kernel`,
+:mod:`~differt2d_tpu_torch.ops.opt_solver_kernel`) and the eager route of
 :func:`differt2d_tpu_torch.tracer.power_map`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from . import optimize, prng
 from .defaults import KIND_RIS, KIND_VERTEX
 from .ops import geometry_ops as _ops
 
@@ -106,6 +110,56 @@ def _solve_image(tx, rx, cw, ckind) -> torch.Tensor:
     return torch.stack(points, dim=-2)
 
 
+def _theta_to_points(theta, cw, ckind) -> torch.Tensor:
+    """Bounce points ``[..., C, o, 2]`` of per-bounce parameters
+    ``theta[..., C, o]``: the point at parameter t on a wall or RIS, the
+    location of a vertex (whose parameter is inert)."""
+    on_wall = _ops.parametric_to_cartesian(cw, theta)
+    return torch.where((ckind == KIND_VERTEX)[..., None], cw[..., 0, :], on_wall)
+
+
+def _solve_opt(tx, rx, cw, ckind, cphi, x0, objective: str, steps: int):
+    """Fermat (``"fermat"``) or MPT (``"mpt"``) solve of every candidate.
+
+    ``tx``/``rx`` are ``[P or 1, 1, 2]``; ``x0[C, M, o]`` holds each
+    candidate's ``M`` initial parameter vectors.  Each start runs
+    :func:`optimize.minimize` on the path length (Fermat) or the summed
+    interaction residual (MPT); with ``M > 1`` the start of least final
+    loss wins (first on ties).  The loss follows the JAX package: the
+    residual at the solution for Fermat, the solve's last loss for MPT.
+
+    :return: ``(points[P, C, o, 2], loss[P, C])``.
+    """
+    C, M, o = x0.shape
+    P = max(tx.shape[0], rx.shape[0])
+    CM = C * M
+    cwm = cw.repeat_interleave(M, dim=0)
+    ckm = ckind.repeat_interleave(M, dim=0)
+    cpm = cphi.repeat_interleave(M, dim=0)
+    txe = tx.expand(P, CM, 2)[:, :, None, :]
+    rxe = rx.expand(P, CM, 2)[:, :, None, :]
+
+    def fun(theta, txe, rxe, cwm, cpm):
+        full = torch.cat([txe, _theta_to_points(theta, cwm, ckm), rxe], dim=2)
+        if objective == "fermat":
+            return _ops.path_length(full)
+        return _bounce_residuals(full, cwm, ckm, cpm)
+
+    theta0 = x0.reshape(1, CM, o).expand(P, CM, o)
+    theta, last = optimize.minimize(fun, theta0, args=(txe, rxe, cwm, cpm), steps=steps)
+    theta, last = theta.reshape(P, C, M, o), last.reshape(P, C, M)
+    if M > 1:
+        best = torch.argmin(last, dim=-1, keepdim=True)  # [P, C, 1]
+        theta = torch.take_along_dim(theta, best[..., None], dim=2)
+        last = torch.take_along_dim(last, best, dim=2)
+    theta, last = theta[:, :, 0], last[:, :, 0]
+    pts = _theta_to_points(theta, cw, ckind)
+    if objective == "mpt":
+        return pts, last
+    full = torch.cat([tx.expand(P, C, 2)[:, :, None], pts, rx.expand(P, C, 2)[:, :, None]], dim=2)
+    return pts, _bounce_residuals(full, cw, ckind, cphi)
+
+
 def _on_objects(pts, cw, ckind, approx: bool, alpha, function) -> torch.Tensor:
     """Soft/hard AND over "bounce i lies on object i", ``[P, C]``."""
     P, C, o = pts.shape[0], pts.shape[1], pts.shape[2]
@@ -183,12 +237,17 @@ def _received_power_batched(pts_full, order: int, r_coef, height) -> torch.Tenso
 
 def _trace_group(
     tx, rx, arrays: SceneArrays, order: int, cand: torch.Tensor, *,
-    approx: bool, alpha, function, tol, patch, listed=None,
+    approx: bool, alpha, function, tol, patch, listed=None, solve=None,
 ):
-    """Solve and validate one order group of candidates (image solver).
+    """Solve and validate one order group of candidates.
 
     ``tx``/``rx`` are ``[P or 1, 1, 2]``; ``cand`` is ``long[C, order]``;
     ``listed`` restricts the blocked test (see :func:`_blocked`).
+    ``solve`` picks the solver: None for the image method,
+    :data:`PINNED` for Fermat/MPT candidates of vertices only (every bounce
+    is pinned to its vertex and its residual is 0, so the solve is skipped,
+    as the JAX package skips it), or ``(objective, steps, x0)`` for
+    :func:`_solve_opt`.
 
     :return: ``(pts_full[P, C, order+2, 2], loss[P, C], valid[P, C])``.
     """
@@ -201,12 +260,17 @@ def _trace_group(
 
     if order == 0:
         pts = torch.zeros(P, C, 0, 2, device=tx.device)
-        pts_full = torch.cat([ends[0], ends[1]], dim=2)
+        loss = torch.zeros(P, C, device=tx.device)
+    elif solve is None:
+        pts = _solve_image(tx, rx, cw, ckind)
+        loss = _bounce_residuals(torch.cat([ends[0], pts, ends[1]], dim=2), cw, ckind, cphi)
+    elif solve is PINNED:
+        pts = cw[:, :, 0, :].expand(P, C, order, 2)
         loss = torch.zeros(P, C, device=tx.device)
     else:
-        pts = _solve_image(tx, rx, cw, ckind)
-        pts_full = torch.cat([ends[0], pts, ends[1]], dim=2)
-        loss = _bounce_residuals(pts_full, cw, ckind, cphi)
+        objective, steps, x0 = solve
+        pts, loss = _solve_opt(tx, rx, cw, ckind, cphi, x0, objective, steps)
+    pts_full = torch.cat([ends[0], pts, ends[1]], dim=2)
 
     on = _on_objects(pts, cw, ckind, approx, alpha, function)
     blk = _blocked(pts_full, cand, arrays, patch, approx, alpha, function, listed=listed)
@@ -221,23 +285,25 @@ def _trace_group(
 
 def _accumulate_pixel(
     tx, rx, arrays: SceneArrays, groups, *, approx: bool, alpha, function,
-    tol, patch, power_fun,
+    tol, patch, power_fun, solves=None,
 ) -> torch.Tensor:
     """Sum over orders and candidates of ``valid * power``, per pixel.
 
     ``tx``/``rx`` are ``[P, 2]`` or ``[2]``; ``groups`` is a list of
-    ``(order, long[C, order])``.
+    ``(order, long[C, order])``; ``solves`` gives each group's ``solve``
+    (see :func:`_trace_group`; None for all: the image method).
     """
     tx3 = tx.reshape(-1, 1, 2)
     rx3 = rx.reshape(-1, 1, 2)
     P = max(tx3.shape[0], rx3.shape[0])
     acc = torch.zeros(P, device=tx3.device)
-    for order, cand in groups:
+    for k, (order, cand) in enumerate(groups):
         if cand.shape[0] == 0:
             continue
         pts_full, _, valid = _trace_group(
             tx3, rx3, arrays, order, cand, approx=approx, alpha=alpha,
             function=function, tol=tol, patch=patch,
+            solve=None if solves is None else solves[k],
         )
         power = power_fun(pts_full, order)
         acc = acc + torch.sum(valid * power, dim=-1)
@@ -247,22 +313,87 @@ def _accumulate_pixel(
 # -- chunked eager maps ---------------------------------------------------------
 
 
+PINNED = "pinned"
+"""``solve`` of a Fermat/MPT group whose candidates are vertices only."""
+
+
 @dataclasses.dataclass(frozen=True)
 class EagerSpec:
-    """Everything of an eager map but its differentiable tensors."""
+    """Everything of an eager map but its differentiable tensors.
+
+    ``solver`` is ``"image"``, ``"fermat"`` or ``"mpt"``; the last two take
+    ``steps`` adam steps from ``many`` starts per candidate, drawn from
+    ``keys`` (per group, the ``uint32[C, 2]`` keys of its candidates, see
+    :func:`group_keys`; None without a key), and need the scene's host
+    ``kinds`` to find the groups of vertices only.
+    """
 
     groups: tuple  # ((order, long[C, order] tensor), ...)
     approx: bool
     function: Callable
     on_transmitters: bool = False
     power_fun: Optional[Callable] = None
+    solver: str = "image"
+    steps: int = 100
+    many: int = 1
+    keys: Optional[tuple] = None
+    kinds: Optional[tuple] = None
 
-    def chunk(self, num_walls: int) -> int:
-        """Pixels per chunk, so the largest temporary stays bounded."""
-        per_pixel = sum(
-            int(c.shape[0]) * (o + 1) * max(num_walls, 1) for o, c in self.groups
-        )
+    @functools.cached_property
+    def solves(self) -> Optional[tuple]:
+        """Per group, its ``solve`` argument of :func:`_trace_group` (None
+        for the image method); raises for a group that needs a key and has
+        none, as the JAX tracer does."""
+        if self.solver == "image":
+            return None
+        out = []
+        for k, (order, cand) in enumerate(self.groups):
+            rows = cand.cpu().numpy()
+            if order == 0 or cand.shape[0] == 0:
+                out.append(None)
+            elif np.all(np.asarray(self.kinds)[rows] == KIND_VERTEX):
+                out.append(PINNED)
+            elif self.keys is None or self.keys[k] is None:
+                msg = f"solver {self.solver!r} requires a PRNG key"
+                raise ValueError(msg)
+            else:
+                x0 = solver_inits(self.keys[k], order, self.many)
+                out.append((self.solver, int(self.steps),
+                            torch.from_numpy(x0).to(cand.device)))
+        return tuple(out)
+
+    def chunk(self, num_walls: int, track: bool = False) -> int:
+        """Pixels per chunk, so the largest temporary stays bounded.  A
+        recorded (``track``) solve keeps every step's temporaries."""
+        per_pixel = 0
+        for o, c in self.groups:
+            n = int(c.shape[0]) * (o + 1) * max(num_walls, 1)
+            if self.solver != "image" and o > 0:
+                n *= self.many * (max(1, self.steps // 16) if track else 1)
+            per_pixel += n
         return max(1, _CHUNK_ELEMENTS // max(per_pixel, 1))
+
+
+def group_keys(groups: dict, key) -> tuple:
+    """Per group of ``groups`` (``{order: int32[C, order]}``, in order),
+    the keys of its candidates: one key per candidate from ``split(key,
+    total)`` in the global order-major enumeration, so order-0 candidates
+    use up keys before order 1 (``tracer.py:571-581``)."""
+    keys = prng.split(key, sum(int(g.shape[0]) for g in groups.values()))
+    out, start = [], 0
+    for _, g in sorted(groups.items()):
+        out.append(keys[start : start + g.shape[0]])
+        start += g.shape[0]
+    return tuple(out)
+
+
+def solver_inits(keys: np.ndarray, order: int, many: int) -> np.ndarray:
+    """``float32[C, many, order]`` initial parameters of the candidates of
+    ``keys[C, 2]``: ``uniform(key, (order,))``, or one draw per key of
+    ``split(key, many)`` when ``many > 1`` (``tracer.py:269-278``)."""
+    if many == 1:
+        return prng.uniform(keys, (order,))[:, None, :]
+    return prng.uniform(prng.split(keys, many), (order,))
 
 
 def make_groups(groups_np: dict, device) -> tuple:
@@ -288,6 +419,7 @@ def eager_chunk(pixels, fixed, walls, kind, phi, scalars, spec: EagerSpec):
         z = _accumulate_pixel(
             tx, rx, arrays, spec.groups, approx=spec.approx, alpha=alpha,
             function=spec.function, tol=tol, patch=patch, power_fun=power_fun,
+            solves=spec.solves,
         )
         out = z if out is None else out + z
     if out is None:
@@ -305,10 +437,10 @@ def eager_value(pixels, fixed, walls, kind, phi, scalars, spec: EagerSpec):
     Autograd records through it when grad mode is on and an input requires
     a gradient; otherwise the chunks run without a graph.
     """
-    step = spec.chunk(walls.shape[0])
     track = torch.is_grad_enabled() and _requires_grad(
         pixels, fixed, walls, phi, *scalars
     )
+    step = spec.chunk(walls.shape[0], track)
     with torch.set_grad_enabled(track):
         parts = [
             eager_chunk(pixels[s : s + step], fixed, walls, kind, phi, scalars, spec)
@@ -323,7 +455,7 @@ def eager_value_and_grad(pixels, fixed, walls, kind, phi, scalars, spec: EagerSp
     The pixel gradient is the autograd backward of each chunk's sum; both
     results are detached (gradient maps are terminal).
     """
-    step = spec.chunk(walls.shape[0])
+    step = spec.chunk(walls.shape[0], track=True)
     vals, grads = [], []
     for start in range(0, pixels.shape[0], step):
         with torch.enable_grad():
@@ -345,7 +477,7 @@ def eager_vjp(pixels, fixed, walls, kind, phi, scalars, spec: EagerSpec, g,
     fixed, walls, phi, scalars)`` want a gradient.  Returns their
     gradients (``None`` where not needed).
     """
-    step = spec.chunk(walls.shape[0])
+    step = spec.chunk(walls.shape[0], track=True)
     leaves = [
         t.detach().requires_grad_(bool(n))
         for t, n in zip((fixed, walls, phi, scalars), needs[1:])

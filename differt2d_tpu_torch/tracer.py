@@ -4,10 +4,12 @@ Counterpart of the entry part of :mod:`differt2d_tpu.tracer`:
 :func:`power_map` sends each request to the unrolled CUDA kernels of
 :mod:`differt2d_tpu_torch.ops.power_map_kernel` (``"cuda"``), to the looped
 ones of :mod:`differt2d_tpu_torch.ops.power_map_looped` (``"looped"``,
-candidates of order <= 1) or to the batched eager tracer of
-:mod:`differt2d_tpu_torch.eager` (``"torch"``), by the rules the JAX package
-uses to choose its Pallas kernels (:func:`_kernel_eligible`), and sets the
-looped kernels' culling gates as ``get_fused_run`` does (:func:`_looped_gates`).
+candidates of order <= 1), to the order-1 Fermat/MPT solver kernel of
+:mod:`differt2d_tpu_torch.ops.opt_solver_kernel` (``"solver"``) or to the
+batched eager tracer of :mod:`differt2d_tpu_torch.eager` (``"torch"``), by
+the rules the JAX package uses to choose its Pallas kernels
+(:func:`_kernel_eligible`), and sets the looped kernels' culling gates as
+``get_fused_run`` does (:func:`_looped_gates`).
 Pixel gradients of the eager route come from autograd: the map is
 independent per pixel, so the backward of ``Z.sum()`` with respect to the
 pixels is the pixel gradient.
@@ -31,10 +33,17 @@ from .defaults import (
     KIND_WALL,
     resolve_device,
 )
-from .eager import EagerSpec, SceneArrays, eager_value, eager_value_and_grad, make_groups
-from . import logic
+from .eager import (
+    EagerSpec,
+    SceneArrays,
+    eager_value,
+    eager_value_and_grad,
+    group_keys,
+    make_groups,
+)
+from . import logic, prng
 from .logic import hard_sigmoid, sigmoid
-from .ops import power_map_kernel, power_map_looped
+from .ops import opt_solver_kernel, power_map_kernel, power_map_looped
 from .ops.cull_tables import _SIGMOID_Z0
 from .rt import path_candidate_matrices
 
@@ -79,11 +88,13 @@ def _filter_nodes(scene, filter_objects) -> Optional[tuple]:
 
 
 def _all_vertex_allowed(scene, filter_objects) -> bool:
-    """Whether every object that may enter a candidate is a vertex."""
-    allowed = [
-        o for o in scene.objects if filter_objects is None or filter_objects(o)
-    ]
-    return bool(allowed) and all(o.kind == KIND_VERTEX for o in allowed)
+    """Whether every object that may enter a candidate is a vertex.  Without
+    a filter the host-side kinds answer, with no copy from the device."""
+    if filter_objects is None:
+        allowed = scene.kinds
+    else:
+        allowed = [o.kind for o in scene.objects if filter_objects(o)]
+    return bool(allowed) and all(k == KIND_VERTEX for k in allowed)
 
 
 def _groups_for(scene, kw) -> dict:
@@ -145,8 +156,8 @@ def _kernel_eligible(
     take their defaults); ``groups`` are the request's candidates (derived
     from ``kw`` when not given).  The reason of an eligible request names
     the kernel family the JAX package would pick (``"unrolled"``,
-    ``"looped"`` or ``"solver"``); the unrolled one is ported, and the
-    looped one for candidates of order <= 1.
+    ``"looped"`` or ``"solver"``); the unrolled and solver ones are
+    ported, and the looped one for candidates of order <= 1.
     """
     kw = {**_OPTIONS, **kw}
     solver = kw["solver"]
@@ -178,8 +189,8 @@ def _kernel_eligible(
         return False, "on_transmitters with RIS breaks path-reversal symmetry"
     if not image:
         return True, (
-            f"solver kernel: order-1 {solver} solve (pallas_solver"
-            ".build_opt_order1_kernel), not yet ported (ROADMAP §1 item 9)"
+            f"solver kernel: order-1 {solver} solve"
+            " (pallas_solver.build_opt_order1_kernel: opt_solver_kernel)"
         )
     if groups is None:
         groups = _groups_for(scene, kw)
@@ -200,22 +211,25 @@ def _kernel_eligible(
 
 
 def _route(scene, kw: dict, groups: dict, backend: str, *, grad: bool) -> str:
-    """``"cuda"``, ``"looped"`` or ``"torch"`` for this request, or raise.
+    """``"cuda"``, ``"looped"``, ``"solver"`` or ``"torch"`` for this
+    request, or raise.
 
-    Fermat/MPT solves are not ported on either route, so they raise.
-    ``"auto"`` takes the unrolled or looped kernels wherever the JAX package
-    takes them, and the eager tracer wherever it takes its XLA tracer.
-    Where it would take a kernel that is not ported yet (the looped one
-    above order 1), it raises: it never runs such a request somewhere
-    slower without being asked.  ``"cuda"`` means either kernel family.
+    ``"auto"`` takes the unrolled, looped or solver kernels wherever the
+    JAX package takes them, and the eager tracer wherever it takes its XLA
+    tracer (among them Fermat/MPT gradient maps, ``many > 1``, orders above
+    1, scenes with vertices and requests without a key).  Where it would
+    take a kernel that is not ported yet (the looped one above order 1), it
+    raises: it never runs such a request somewhere slower without being
+    asked.  ``"cuda"`` means any kernel family, and raises with the reason
+    where none covers the request.
     """
     ok, reason = _kernel_eligible(scene, kw, grad=grad, groups=groups)
     if kw["solver"] not in ("image", "fermat", "mpt"):
         raise ValueError(reason)
-    if not _image_paths(scene, kw):
+    if not _image_paths(scene, kw) and kw["solver_grad"] == "implicit":
         msg = (
-            f"solver {kw['solver']!r} is not ported yet (ROADMAP §1 item 9:"
-            f" optimizer + Fermat/MPT, then kernel B6); the JAX package: {reason}"
+            "solver_grad='implicit' is not ported yet (ROADMAP §1 item 9b: the"
+            " cfg3/cfg5 gradient modes); solver_grad='unroll' is"
         )
         raise NotImplementedError(msg)
     if backend == "torch":
@@ -229,6 +243,8 @@ def _route(scene, kw: dict, groups: dict, backend: str, *, grad: bool) -> str:
         route, caps = "cuda", power_map_kernel.kernel_caps_reason
     elif reason.startswith("looped") and "power_map_looped" in reason:
         route, caps = "looped", power_map_looped.kernel_caps_reason
+    elif reason.startswith("solver"):
+        route, caps = "solver", opt_solver_kernel.kernel_caps_reason
     else:
         msg = f"{reason}; pass backend='torch' to run it on the eager tracer"
         raise NotImplementedError(msg)
@@ -263,6 +279,16 @@ def _looped_gates(scene, kw: dict, groups: dict) -> tuple[bool, bool]:
     return any_cullable and ok, ok
 
 
+def _solver_options(kw: dict) -> dict:
+    """The keywords of ``opt_solver_kernel.solver_request`` for the merged
+    options ``kw`` of a solver-routed request."""
+    return dict(
+        solver=kw["solver"], steps=int(kw["steps"]), key=kw["key"], approx=kw["approx"],
+        sigmoid=kw["function"] is sigmoid, on_transmitters=kw["on_transmitters"],
+        scalars=tuple(kw[name] for name in _SCALAR_NAMES),
+    )
+
+
 def power_map(
     scene,
     X,
@@ -283,13 +309,18 @@ def power_map(
 
     ``backend``: ``"auto"`` runs the CUDA kernels for every request they
     cover (the unrolled ones for small candidate streams, the looped,
-    culled ones for city-scale scenes at orders <= 1) and the eager tracer
-    for requests the JAX package sends to its XLA tracer; it raises for
-    requests the JAX package sends to a kernel not ported yet (looped
-    maps above order 1, Fermat/MPT solves).  ``"cuda"`` forces the kernels
-    (and raises on what they do not cover); ``"torch"`` forces the eager
-    tracer.  On a CPU device the kernels' plain PyTorch versions stand in
-    for them.
+    culled ones for city-scale scenes at orders <= 1, the adam solver for
+    keyed order-1 Fermat/MPT value maps) and the eager tracer for requests
+    the JAX package sends to its XLA tracer; it raises for requests the
+    JAX package sends to a kernel not ported yet (looped maps above order
+    1).  ``"cuda"`` forces the kernels (and raises on what they do not
+    cover); ``"torch"`` forces the eager tracer.  On a CPU device the
+    kernels' plain PyTorch versions stand in for them.
+
+    ``solver="fermat"`` or ``"mpt"`` solves each bounce with ``steps`` adam
+    steps from a uniform draw of ``key`` (a ``uint32[2]`` key of
+    :mod:`differt2d_tpu_torch.prng`, equal to JAX's for the same seed), the
+    best of ``many`` starts.
 
     ``device`` defaults to ``"cuda"``; without a GPU, pass ``"cpu"``.
 
@@ -322,6 +353,12 @@ def power_map(
     kw = {**_OPTIONS, **kwargs}
     if kw["approx"] is None:
         kw["approx"] = bool(logic.ENABLE_APPROX)
+    for name in ("steps", "many"):
+        if int(kw[name]) != kw[name] or kw[name] < 1:
+            msg = f"{name} must be a positive integer, got {kw[name]!r}"
+            raise ValueError(msg)
+    if kw["key"] is not None:
+        kw["key"] = prng.as_key(kw["key"])
     want_grad = grad or value_and_grad
     groups = _groups_for(scene, kw)
     route = _route(scene, kw, groups, backend, grad=want_grad)
@@ -333,6 +370,8 @@ def power_map(
             on_transmitters=kw["on_transmitters"],
             scalars=tuple(kw[name] for name in _SCALAR_NAMES), cull=cull, shadow=shadow,
         )
+    elif route == "solver":
+        Z = opt_solver_kernel.solver_map(scene, X, Y, groups, **_solver_options(kw))
     elif route == "cuda":
         Z = power_map_kernel.power_map_kernel(
             scene, X, Y, groups, want_grad=want_grad,
@@ -347,6 +386,11 @@ def power_map(
             function=kw["function"],
             on_transmitters=bool(kw["on_transmitters"]),
             power_fun=kw["power_fun"],
+            solver=kw["solver"],
+            steps=int(kw["steps"]),
+            many=int(kw["many"]),
+            keys=None if kw["key"] is None else group_keys(groups, kw["key"]),
+            kinds=scene.kinds,
         )
         points = scene.receivers if kw["on_transmitters"] else scene.transmitters
         fixed = (

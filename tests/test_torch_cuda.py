@@ -131,3 +131,78 @@ def test_looped_kernels_match_plain_and_identity_tables(cuda, name, mode):
 def test_looped_sigmoid_probe_saturates(cuda):
     pml._SIGMOID_SATURATES.pop(str(cuda), None)
     assert pml.sigmoid_saturates(cuda)
+
+
+# -- the order-1 Fermat/MPT solver kernel ------------------------------------------------
+
+from differt2d_tpu_torch import power_map, prng  # noqa: E402
+from differt2d_tpu_torch import tracer as tr  # noqa: E402
+from differt2d_tpu_torch.logic import sigmoid  # noqa: E402
+from differt2d_tpu_torch.ops import opt_solver_kernel as osk  # noqa: E402
+
+_SOLVER_CASES = {
+    "ris_mpt": (True, dict(order=1, solver="mpt", steps=300, approx=True,
+                           filter_objects=lambda o: o.kind == 1)),
+    "fermat": (False, dict(order=1, solver="fermat", steps=100, approx=True)),
+    "mpt": (False, dict(order=1, solver="mpt", steps=100, approx=True)),
+    "mpt_hard": (False, dict(order=1, solver="mpt", steps=100, approx=False)),
+    "fermat_los_sigmoid": (False, dict(min_order=0, max_order=1, solver="fermat", steps=100,
+                                       approx=True, function=sigmoid)),
+}
+
+
+def _flip_stats(got, ref):
+    err = (got - ref).abs()
+    scale = 1.0 + ref.abs()
+    flipped = err > 0.05 * scale
+    rest = float((err[~flipped] / scale[~flipped]).max()) if bool((~flipped).any()) else 0.0
+    return float(flipped.float().mean()), rest
+
+
+@pytest.mark.parametrize("case", sorted(_SOLVER_CASES))
+def test_solver_kernel_matches_plain(cuda, case):
+    """Fermat at rtol 1e-3 / atol 1e-4, MPT under the flip contract."""
+    with_ris, kw = _SOLVER_CASES[case]
+    scene = Scene.square_scene(device=cuda).update_transmitters(tx2=[0.8, 0.3])
+    if with_ris:
+        scene = scene.add_ris([[0.5, 0.3], [0.5, 0.7]])
+    o = {**tr._OPTIONS, **kw, "key": prng.PRNGKey(1234)}
+    groups = tr._groups_for(scene, o)
+    assert tr._route(scene, o, groups, "auto", grad=False) == "solver"
+    X, Y = torch.meshgrid(torch.linspace(0.01, 0.99, 64, device=cuda),
+                          torch.linspace(0.02, 0.98, 64, device=cuda), indexing="xy")
+    args = osk.solver_request(scene, X, Y, groups, **tr._solver_options(o))
+    before = osk.LAUNCHES["opt_solver_value"]
+    got = osk.value(*args, approx=o["approx"], sigmoid=o["function"] is sigmoid)
+    torch.cuda.synchronize()
+    assert osk.LAUNCHES["opt_solver_value"] == before + 2  # one launch per transmitter
+    ref = osk.plain_opt_value(*args)
+    if o["solver"] == "fermat":
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4)
+    else:
+        rate, rest = _flip_stats(got, ref)
+        assert rate <= 0.005 and rest <= 1e-3, (rate, rest)
+    full = power_map(scene, X, Y, key=prng.PRNGKey(1234), **kw)
+    eager_full = power_map(scene, X, Y, key=prng.PRNGKey(1234), backend="torch", **kw)
+    torch.testing.assert_close(full, eager_full, rtol=1e-3, atol=1e-4)
+
+
+def test_solver_autograd_through_the_kernel(cuda):
+    scene = Scene.square_scene(device=cuda).add_ris([[0.5, 0.3], [0.5, 0.7]])
+    X, Y = torch.meshgrid(torch.linspace(0.01, 0.99, 16, device=cuda),
+                          torch.linspace(0.02, 0.98, 16, device=cuda), indexing="xy")
+    kw = dict(order=1, solver="mpt", steps=100, approx=True, key=prng.PRNGKey(1234),
+              filter_objects=lambda o: o.kind == 1)
+
+    def grads(backend):
+        phi = scene.phi.clone().requires_grad_(True)
+        tx = scene.transmitters["tx"].clone().requires_grad_(True)
+        sc = Scene.from_arrays(scene.walls, scene.kind, phi, {"tx": tx}, scene.receivers)
+        out = power_map(sc, X, Y, backend=backend, **kw)
+        return (out, *torch.autograd.grad(out.sum(), (phi, tx)))
+
+    before = osk.LAUNCHES["opt_solver_value"]
+    got = grads("auto")
+    assert osk.LAUNCHES["opt_solver_value"] > before
+    for g, r in zip(got, grads("torch")):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5)

@@ -6,8 +6,10 @@ and the kernel route's autograd backward.
 * Entry points default to the GPU and raise without one, rather than
   quietly running on the CPU.
 * :func:`differt2d_tpu_torch.tracer._kernel_eligible` gives the decisions of
-  ``differt2d_tpu.tracer._pallas_eligible`` (and the kernel family of
-  ``get_fused_run``'s stream-proxy rule) on a table of requests.
+  ``differt2d_tpu.tracer.power_map``'s Pallas dispatch on a TPU
+  (``_pallas_eligible``, less the solver gradient maps it keeps on its
+  tracer) and the kernel family of ``get_fused_run``'s stream-proxy rule or
+  of the in-kernel solver, on a table of requests.
 * The value kernel's ``autograd.Function`` backward, run on the CPU with
   the plain forward injected in place of the launch, gives the eager
   tracer's gradients.
@@ -29,9 +31,10 @@ from differt2d_tpu.geometry import RIS, Vertex
 from differt2d_tpu.logic import sigmoid as jsigmoid
 from differt2d_tpu.rt import path_candidate_matrices as jcands
 from differt2d_tpu.scene import Scene as JScene
-from differt2d_tpu_torch import load_scene_arrays, power_map
+from differt2d_tpu_torch import load_scene_arrays, power_map, prng
 from differt2d_tpu_torch import tracer as ttracer
 from differt2d_tpu_torch.logic import sigmoid as tsigmoid
+from differt2d_tpu_torch.ops import opt_solver_kernel as osk
 from differt2d_tpu_torch.ops import power_map_kernel as pmk
 from differt2d_tpu_torch.scene import Scene
 
@@ -48,7 +51,9 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'differt2d_tpu' or m.startswith('differt2d_tpu.'))\n"
-        "assert len(names) >= 9, names\n"
+        "assert len(names) >= 12, names\n"
+        "for m in ('prng', 'optimize', 'ops.opt_solver_kernel'):\n"
+        "    assert 'differt2d_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -79,15 +84,17 @@ def _scenes():
         Vertex(xy=jnp.array([0.3, 0.6])), Vertex(xy=jnp.array([0.7, 0.2]))
     )
     jcity = JScene.city_extract_scene()
+    jsquare = JScene.square_scene()
+    jscenes = {"basic": jbasic, "ris": jris, "vertex": jvert, "city": jcity, "square": jsquare}
     port = {}
-    for name, js in (("basic", jbasic), ("ris", jris), ("vertex", jvert), ("city", jcity)):
+    for name, js in jscenes.items():
         arr = jtracer.scene_arrays(js)
         port[name] = load_scene_arrays(
             np.asarray(arr.walls), np.asarray(arr.kind), np.asarray(arr.phi),
             {k: np.asarray(p.xy) for k, p in js.transmitters.items()},
             {k: np.asarray(p.xy) for k, p in js.receivers.items()}, device="cpu",
         )
-    return {"basic": jbasic, "ris": jris, "vertex": jvert, "city": jcity}, port
+    return jscenes, port
 
 
 def _power(pts, order):  # a custom power model (any callable)
@@ -120,24 +127,55 @@ TABLE = [
     ("city", {"on_transmitters": True}, None, True),
     ("city", {"max_order": 2}, None, False),
     ("city", {"order": 0}, None, False),
+    # Fermat/MPT ("KEY": a key of the request's framework).
+    ("square", {"solver": "fermat", "order": 1, "key": "KEY"}, None, False),
+    ("square", {"solver": "mpt", "order": 1, "key": "KEY"}, None, False),
+    ("square", {"solver": "mpt", "min_order": 0, "max_order": 1, "key": "KEY"}, None, False),
+    ("square", {"solver": "fermat", "order": 1, "key": "KEY"}, None, True),
+    ("square", {"solver": "mpt", "order": 1}, None, False),
+    ("square", {"solver": "mpt", "max_order": 2, "key": "KEY"}, None, False),
+    ("square", {"solver": "mpt", "order": 1, "key": "KEY", "many": 3}, None, False),
+    ("square", {"solver": "fermat", "order": 1, "key": "KEY", "solver_grad": "implicit"}, None,
+     False),
+    ("square", {"solver": "fermat", "order": 1, "key": "KEY", "on_transmitters": True}, None,
+     False),
+    ("square", {"solver": "mpt", "order": 1, "key": "KEY", "function": jsigmoid},
+     {"solver": "mpt", "order": 1, "key": "KEY", "function": tsigmoid}, False),
+    ("ris", {"solver": "mpt", "order": 1, "key": "KEY", "filter_objects": "ris"}, None, False),
+    ("ris", {"solver": "mpt", "order": 1, "key": "KEY", "on_transmitters": True}, None, False),
+    ("vertex", {"solver": "fermat", "order": 1, "key": "KEY"}, None, False),
 ]
 
 
 @pytest.mark.parametrize("row", range(len(TABLE)))
-def test_kernel_eligible_matches_jax(row):
+def test_kernel_eligible_matches_jax(row, monkeypatch):
     name, jkw, tkw, grad = TABLE[row]
     jscenes, tscenes = _scenes()
     js, ts = jscenes[name], tscenes[name]
     jkw = dict(jkw)
     tkw = dict(jkw if tkw is None else tkw)
+    for kw, fw in ((jkw, jax.random.PRNGKey(0)), (tkw, prng.PRNGKey(0))):
+        if kw.get("key") == "KEY":
+            kw["key"] = fw
     if jkw.get("filter_objects") == "vertex":
         jkw["filter_objects"] = lambda o: isinstance(o, Vertex)
         tkw["filter_objects"] = lambda o: o.kind == 2
-    expected = jtracer._pallas_eligible(js, jkw)
+    if jkw.get("filter_objects") == "ris":
+        jkw["filter_objects"] = lambda o: isinstance(o, RIS)
+        tkw["filter_objects"] = lambda o: o.kind == 1
+    # The JAX package's dispatch as it stands on a TPU (off one it keeps
+    # Fermat/MPT on its tracer); gradient maps of a solver stay on its
+    # tracer (tracer.power_map's _grad_on_solver).
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    solver = jkw.get("solver", "image")
+    solved = solver != "image" and not jtracer._all_vertex_allowed(js, jkw.get("filter_objects"))
+    expected = jtracer._pallas_eligible(js, jkw) and not (grad and solved)
     ok, reason = ttracer._kernel_eligible(ts, tkw, grad=grad)
     assert ok == expected, reason
     assert reason
-    if ok:
+    if ok and solved:
+        assert reason.startswith("solver kernel") and "opt_solver_kernel" in reason, reason
+    elif ok:
         # The unrolled/looped choice of get_fused_run on a TPU.
         arr = jtracer.scene_arrays(js)
         groups = jcands(arr.num_objects, min_order=jkw.get("min_order", 0),
@@ -154,12 +192,17 @@ def test_kernel_eligible_matches_jax(row):
 
 def test_solver_kernel_requests_are_named():
     """On a TPU, keyed order-1 Fermat/MPT maps go to the in-kernel solver
-    (the JAX package keeps them on its tracer off a TPU)."""
+    (the JAX package keeps them on its tracer off a TPU); the port routes
+    them to its solver kernel."""
     _, tscenes = _scenes()
     ok, reason = ttracer._kernel_eligible(
         tscenes["basic"], {"solver": "fermat", "key": 0, "order": 1}
     )
-    assert ok and reason.startswith("solver kernel") and "item 9" in reason
+    assert ok and reason.startswith("solver kernel") and "opt_solver_kernel" in reason
+    kw = {**ttracer._OPTIONS, "solver": "mpt", "key": prng.PRNGKey(0), "order": 1}
+    groups = ttracer._groups_for(tscenes["square"], kw)
+    assert ttracer._route(tscenes["square"], kw, groups, "auto", grad=False) == "solver"
+    assert ttracer._route(tscenes["square"], kw, groups, "auto", grad=True) == "torch"
     ok, reason = ttracer._kernel_eligible(tscenes["basic"], {"solver": "mpt", "key": 0, "max_order": 2})
     assert not ok
 
@@ -173,7 +216,7 @@ def test_dispatch_routes_and_raises():
         power_map(scene, X, Y, max_order=3, device="cpu")
     with pytest.raises(ValueError, match="power_fun"):
         power_map(scene, X, Y, power_fun=_power, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="requires a PRNG key"):
         power_map(scene, X, Y, solver="fermat", device="cpu")
     # Requests the JAX package sends to its tracer run on the eager tracer.
     assert float(power_map(scene, X, Y, power_fun=_power, device="cpu").abs().sum()) == 0.0
@@ -183,24 +226,63 @@ def test_dispatch_routes_and_raises():
 
 @pytest.mark.parametrize("backend", ["auto", "torch", "cuda"])
 def test_fermat_raises_on_every_backend_with_the_jax_route(backend):
-    """Neither route solves Fermat/MPT yet; the error names the roadmap item
-    and where the JAX package runs the request."""
-    scene = Scene.basic_scene(device="cpu")
+    """Keyed order-1 Fermat maps run on every backend (on the CPU the solver
+    kernel's plain version is the eager solve, so all three agree); errors
+    name where the JAX package runs the request: without a key, above order
+    1 and with vertices the kernel route raises, and the tracer route raises
+    for a missing key as the JAX tracer does."""
+    scene = Scene.square_scene(device="cpu")
     X, Y = scene.grid(4)
-    with pytest.raises(NotImplementedError, match="item 9.*solver kernel"):
-        power_map(scene, X, Y, solver="fermat", key=0, order=1, backend=backend,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9.*without a key"):
+    kw = dict(solver="fermat", order=1, steps=10, device="cpu")
+    z = power_map(scene, X, Y, key=prng.PRNGKey(0), backend=backend, **kw)
+    ref = power_map(scene, X, Y, key=prng.PRNGKey(0), backend="torch", **kw)
+    torch.testing.assert_close(z, ref, rtol=0, atol=0)
+    err = ValueError
+    match = "does not cover.*without a key" if backend == "cuda" else "requires a PRNG key"
+    with pytest.raises(err, match=match):
         power_map(scene, X, Y, solver="mpt", backend=backend, device="cpu")
+    if backend == "cuda":
+        with pytest.raises(ValueError, match="does not cover.*above order 1"):
+            power_map(scene, X, Y, solver="mpt", max_order=2, key=prng.PRNGKey(0),
+                      backend=backend, device="cpu")
+        with pytest.raises(ValueError, match="does not cover.*with vertices"):
+            power_map(scene.add_vertex([0.5, 0.5]), X, Y, key=prng.PRNGKey(0),
+                      backend=backend, **kw)
     with pytest.raises(ValueError, match="unknown solver"):
         power_map(scene, X, Y, solver="newton", backend=backend, device="cpu")
 
 
+def test_solver_wrapper_raises_where_the_jax_kernel_raises():
+    """``_opt_solver_map``'s errors (``pallas_kernels.py:3843-3871``)."""
+    groups = {0: np.zeros((1, 0), np.int32), 1: np.arange(4, dtype=np.int32)[:, None]}
+    kw = dict(solver="mpt", steps=10, approx=True, sigmoid=False)
+    kinds = (0, 0, 0, 0)
+    with pytest.raises(ValueError, match="orders <= 1"):
+        osk.solver_inputs({**groups, 2: np.zeros((0, 2), np.int32)}, prng.PRNGKey(0), "cpu",
+                          kinds=kinds, **kw)
+    with pytest.raises(ValueError, match="requires a PRNG key"):
+        osk.solver_inputs(groups, None, "cpu", kinds=kinds, **kw)
+    with pytest.raises(ValueError, match="vertex"):
+        osk.solver_inputs(groups, prng.PRNGKey(0), "cpu", kinds=(0, 0, 2, 0), **kw)
+    inputs = osk.solver_inputs(groups, prng.PRNGKey(0), "cpu", kinds=kinds, **kw)
+    assert inputs is osk.solver_inputs(groups, prng.PRNGKey(0), "cpu", kinds=kinds, **kw)
+    assert inputs is not osk.solver_inputs(groups, prng.PRNGKey(1), "cpu", kinds=kinds, **kw)
+    assert inputs.cand.tolist() == [0, 1, 2, 3] and inputs.los is not None
+    assert inputs.bc.shape == (20,) and inputs.x0.shape == (4,)
+    assert osk.kernel_caps_reason(osk.MAX_WALLS + 1, 1) is not None
+    assert "orders <= 1" in osk.kernel_caps_reason(4, 2)
+
+
 def test_kernel_caps_match_the_cuda_source():
-    with open(os.path.join(ROOT, "differt2d_tpu_torch", "ops", "csrc", "power_map.cu")) as f:
-        src = f.read()
-    for name, value in (("PM_MAX_ORDER", pmk.MAX_ORDER), ("PM_MAX_WALLS", pmk.MAX_WALLS)):
-        assert f"#define {name} {value}\n" in src, name
+    csrc = os.path.join(ROOT, "differt2d_tpu_torch", "ops", "csrc")
+    for source, caps in (
+        ("power_map.cu", (("PM_MAX_ORDER", pmk.MAX_ORDER), ("PM_MAX_WALLS", pmk.MAX_WALLS))),
+        ("opt_solver.cu", (("OS_MAX_WALLS", osk.MAX_WALLS),)),
+    ):
+        with open(os.path.join(csrc, source)) as f:
+            src = f.read()
+        for name, value in caps:
+            assert f"#define {name} {value}\n" in src, name
 
 
 def test_requests_above_the_kernel_caps_raise():

@@ -22,6 +22,8 @@ tests also cover the kernel route (dispatch, transmitter stacking, path
 reversal) up to the launch.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -75,6 +77,14 @@ def _ref(js, X, Y, **kw):
     return jtracer.power_map(js, jnp.asarray(X), jnp.asarray(Y), backend="xla", **kw)
 
 
+@functools.lru_cache(maxsize=None)
+def _basic_ref(max_order: int, approx: bool) -> np.ndarray:
+    """The basic scene's reference map, computed once per module for both
+    backends of the port."""
+    X, Y = _grid()
+    return np.asarray(_ref(JScene.basic_scene(), X, Y, max_order=max_order, approx=approx))
+
+
 def _ours(ts, X, Y, **kw):
     return power_map(ts, torch.from_numpy(X), torch.from_numpy(Y), device="cpu", **kw)
 
@@ -94,7 +104,7 @@ def _assert_kinks(t, j):
 def test_basic_scene_value_maps(backend, max_order, approx):
     js = JScene.basic_scene()
     X, Y = _grid()
-    ref = _ref(js, X, Y, max_order=max_order, approx=approx)
+    ref = _basic_ref(max_order, approx)
     got = _ours(_port(js), X, Y, max_order=max_order, approx=approx, backend=backend)
     assert got.shape == X.shape and got.dtype == torch.float32
     _assert_close(got, ref)
