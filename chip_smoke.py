@@ -68,10 +68,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     eager solver's;
 14. timing at 1024 x 1024 (CUDA events, 8 maps chained, median of 5): the
     solver kernel and ``power_map`` end to end for each map of phase 11,
-    with the bound from the operations the solve needs.
+    with the bound from the operations the solve needs;
+15. the order-2 city path: ``power_map`` of ``Scene.city_extract_scene()``
+    with ``max_order=2`` (18,497 candidates, soft logic, alpha 100) on a
+    1024 x 1024 grid, value and value + gradient, through the looped
+    kernels with middle-segment words and pair kills; the looped launch
+    counters are zeroed just before and read just after, and the unrolled
+    and solver counters and the eager tracer must not move; the culled value
+    map must equal the identity-table map bit for bit (one unculled call),
+    and at 256 x 256 (cfg8's size) the value and value + gradient maps; the
+    kernels are held against their plain versions on four 16 x 16 tiles of
+    the 1024 x 1024 map with those tiles' own tables (the two with the most
+    kept order-2 candidates, the transmitter's, a corner), each plain call
+    timed once;
+16. coverage at 32 x 32, each case bit for bit against identity tables and
+    against the plain version on the block of the grid with the most
+    nonzero pixels (16 x 16, or 8 x 8 or 2 x 2 where the plain version's
+    work per pixel is large): hard logic, sigmoid,
+    ``city_scene``, two transmitters, a seeded random city of 300 walls,
+    the basic scene at order 2 (gradient map) and 3, and 6 buildings of the
+    city extract at order 3;
+17. autograd through the looped value kernel at order 2 and 32 x 32 (walls,
+    transmitter, alpha) against the plain version's;
+18. timing at 1024 x 1024 and 256 x 256 (CUDA events, maps chained, median
+    of 5): culled kernels, table build, end to end, the bound of the work
+    the tables leave, the kept share of each order's candidate-pixels and
+    the listed share of the middle-segment words.
 
-The profile of one city map and the tile / refine sweep that chose the
+The profile of one city map and the tile / refine sweeps that chose the
 culling constants are in ``differt2d_tpu_torch/ops/looped_tuning.py``.
+Each group of phases prints its seconds, and each of phases 15-18 its own.
 
 It prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line,
 and, last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -302,77 +328,102 @@ def ops_count(groups: dict, kinds: tuple, n_tx: int, with_grad: bool) -> tuple[i
     return per_pixel * n_tx + (n_tx - 1) * (3 if with_grad else 1), per_launch
 
 
-def ops_left(plan, inputs, kinds: tuple, with_grad: bool) -> tuple[int, int, int]:
-    """``(operations, blocked tests, kept candidate-pixels)`` that a looped
-    map's tables leave, summed over its pixels and transmitters: each
-    tile's kept candidates, each tested against the walls its occluder
-    lists hold (less the adjacent wall and vertices, as the kernel skips
-    them), plus the operations per launch."""
+def ops_left(plan, inputs, kinds: tuple, with_grad: bool) -> tuple[int, int, dict]:
+    """``(operations, blocked tests, {order: kept candidate-pixels})`` that a
+    looped map's tables leave, summed over its pixels and transmitters: each
+    tile's kept candidates of each order, each segment tested against the
+    walls its occluder words hold (less the walls adjacent to the segment
+    and vertices, as the kernel skips them), plus the operations per
+    launch."""
     import torch
 
     from differt2d_tpu_torch.ops.cull_tables import unpack_words
+    from differt2d_tpu_torch.ops.power_map_looped import _keep_mask
 
-    dev = inputs.cand.device
-    W, C = len(kinds), inputs.num_candidates
+    dev = plan.per_tx[0].aux.device
+    W = len(kinds)
     solid = torch.tensor([k != 2 for k in kinds], device=dev)
-    not_self = ~torch.eye(W, dtype=torch.bool, device=dev)
-    rows = [[int(i)] for i in inputs.cand.tolist()]
-    base = torch.tensor([cand_ops(r, kinds, with_grad)[0] for r in rows] or [0],
-                        dtype=torch.float64, device=dev)[:C]
+    off_diag = ~torch.eye(W, dtype=torch.bool, device=dev)
+    base = {o: torch.tensor([cand_ops(r, kinds, with_grad)[0] for r in cand.tolist()],
+                            dtype=torch.float64, device=dev)
+            for o, cand in inputs.cands}
     los_base = cand_ops([], kinds, with_grad)[0]
     tx, ty = plan.tiles
     cols = torch.arange(tx, device=dev)
     npix = ((torch.clamp(plan.cols - cols * plan.tile[0], max=plan.tile[0]))[None, :]
             * torch.clamp(plan.rows - torch.arange(ty, device=dev)[:, None] * plan.tile[1],
                           max=plan.tile[1])).reshape(-1).double()
-    ops, tests, kept = 0.0, 0.0, 0.0
-    w0 = inputs.cand.long()
+    T = npix.shape[0]
+    ops, tests, kept = 0.0, 0.0, {o: 0.0 for o in inputs.orders}
     for tp in plan.per_tx:
         tb = tp.tables
-        keep = torch.zeros(tb.cnt.shape[0], C, dtype=torch.bool, device=dev)
-        keep.scatter_(1, tb.prm.long(),
-                      torch.arange(C, device=dev)[None, :] < tb.cnt[:, None].long())
-        l0 = (unpack_words(tb.l0w, W) & not_self & solid).sum(-1).double()
-        last = (unpack_words(tb.lastw, W) & not_self & solid).sum(-1).double()
-        tile_tests = (keep * (l0[w0][None, :] + last[:, w0])).sum(-1)
-        tile_ops = (keep * base[None, :]).sum(-1) + OPS_TEST * tile_tests
+        l0 = (unpack_words(tb.l0w, W) & off_diag & solid).sum(-1).double()
+        last = (unpack_words(tb.lastw, W) & off_diag & solid).sum(-1).double()  # [T, W]
+        mid = None
+        if tb.midw.numel():
+            m = unpack_words(tb.midw, W).reshape(W, W, W) & solid & off_diag[:, None, :]
+            mid = (m & off_diag[None, :, :]).sum(-1).double()  # [i, j]
+        tile_tests = torch.zeros(T, dtype=torch.float64, device=dev)
+        tile_ops = torch.zeros(T, dtype=torch.float64, device=dev)
+        for (o, cand), prm, cnt in zip(inputs.cands, tb.prm, tb.cnt):
+            w = cand.long()
+            head = l0[w[:, 0]]
+            for k in range(1, o):
+                head = head + mid[w[:, k - 1], w[:, k]]
+            keep = _keep_mask(prm, cnt)
+            for t0 in range(0, T, 256):
+                ts = slice(t0, t0 + 256)
+                kf = keep[ts].double()
+                seg = (kf * (head[None, :] + last[ts][:, w[:, -1]])).sum(-1)
+                tile_tests[ts] += seg
+                tile_ops[ts] += (kf * base[o][None, :]).sum(-1) + OPS_TEST * seg
+            kept[o] += float((npix * cnt.double()).sum())
         if inputs.has_los:
             los = (unpack_words(tb.losw, W) & solid).sum(-1).double()
             tile_tests = tile_tests + los
             tile_ops = tile_ops + los_base + OPS_TEST * los
         ops += float((npix * tile_ops).sum())
         tests += float((npix * tile_tests).sum())
-        kept += float((npix * keep.sum(-1)).sum())
     n_tx = len(plan.per_tx)
     ops += plan.rows * plan.cols * (n_tx - 1) * (3 if with_grad else 1)
-    ops += OPS_PER_WALL * W + OPS_PER_IMAGE * C * n_tx
-    return int(ops), int(tests), int(kept)
+    ops += OPS_PER_WALL * W + OPS_PER_IMAGE * sum(int(c.numel()) for _, c in inputs.cands) * n_tx
+    return int(ops), int(tests), kept
 
 
 # Operations of the culling-table build (B7, ops/cull_tables.py), counted
 # from its shapes as OPS_* above (compares, min/max, abs and the integer bit
-# packing free): per sub-box, tile and candidate, the interval bounds of one
-# bounce's wall parameter in beam_keep_tables (two affine intervals 16, the
-# denominator margin 2, four interval quotients 4, the pad 4); per tile and
-# wall, the grown hull of last_masks' _hull_mask (diagonal 6, growth 2,
-# grown corners 4).  The per-wall and per-pair work (first walls, shadow
-# geometry) is a few hundred thousand operations and is left out.
+# packing free): per sub-box, tile, candidate and bounce, the interval
+# bounds of the bounce's wall parameter in beam_keep_tables (two affine
+# intervals 16, the denominator margin 2, four interval quotients 4, the
+# pad 4); per tile and wall, the grown hull of last_masks' _hull_mask
+# (diagonal 6, growth 2, grown corners 4); with middle segments, per wall
+# triple the lane of pair_occlusion_dead (side tests 4, four crossing
+# ratios 8, four projections 28, the pad 3, about 45) and per wall pair the
+# hull of mid_masks (12).  The per-wall work (first walls, shadow geometry)
+# is a few hundred thousand operations and is left out.
 OPS_BEAM = 26
 OPS_HULL = 12
+OPS_PAIR_LANE = 45
 
 
-def table_ops(plan, num_candidates: int, num_walls: int) -> int:
-    """Operations of the order-1 table build of ``plan``, summed over its
+def table_ops(plan, inputs, num_walls: int) -> int:
+    """Operations of the table build of ``plan``, summed over its
     transmitters."""
-    from differt2d_tpu_torch.ops.power_map_looped import REFINE
+    from differt2d_tpu_torch.ops.power_map_looped import refine_for
 
-    tiles = plan.per_tx[0].tables.cnt.shape[0]
-    per_tx = REFINE * REFINE * tiles * num_candidates * OPS_BEAM + tiles * num_walls * OPS_HULL
+    refine = refine_for(inputs.num_candidates)
+    tiles = plan.per_tx[0].tables.losw.shape[0]
+    bounces = sum(int(c.numel()) for _, c in inputs.cands)
+    per_tx = refine * refine * tiles * bounces * OPS_BEAM + tiles * num_walls * OPS_HULL
+    if inputs.max_order >= 2:
+        per_tx += num_walls ** 3 * OPS_PAIR_LANE + num_walls ** 2 * OPS_HULL
     return per_tx * len(plan.per_tx)
 
 
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     # -- 1. the card -------------------------------------------------------
     try:
@@ -532,8 +583,11 @@ def main() -> int:
           f" points/s), value+grad {e2e_vag_ms:.4f} ms/map ({P / e2e_vag_ms * 1e3:.4g} points/s)",
           flush=True)
     print("library_ms: null -- no single PyTorch call computes this map", flush=True)
-    rows += city_phases(dev, peak_fp32)
-    rows += solver_phases(dev, peak_fp32)
+    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
+    for first, phases in ((7, city_phases), (11, solver_phases), (15, order2_phases)):
+        t0 = time.perf_counter()
+        rows += phases(dev, peak_fp32)
+        print(f"phases {first}-{first + 3}: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -547,6 +601,48 @@ def city_grid(n: int, device):
     return torch.meshgrid(x, x, indexing="xy")
 
 
+def looped_request(sc, X, Y, kw, dev, grad=False, **plan_kw):
+    """The looped wrapper's inputs for ``power_map(sc, X, Y, **kw)``:
+    ``(args, kernel kw, gates, replan)``, with the dispatch's gates unless
+    ``plan_kw`` overrides them; ``replan()`` builds the plan (constants and
+    tables) again.  Fails unless the request (a gradient map with ``grad``)
+    routes to the looped kernels."""
+    import torch
+
+    from differt2d_tpu_torch import tracer as tr
+    from differt2d_tpu_torch.logic import sigmoid
+    from differt2d_tpu_torch.ops import power_map_looped as pml
+
+    o = {**tr._OPTIONS, **kw}
+    groups = tr._groups_for(sc, o)
+    check(tr._route(sc, o, groups, "auto", grad=grad) == "looped",
+          "the request does not route to the looped kernels")
+    cull, shadow = tr._looped_gates(sc, o, groups)
+    sig = o["function"] is sigmoid
+    target = sc.swap_ends() if o["on_transmitters"] else sc
+    txs = torch.stack(list(target.transmitters.values())).contiguous()
+    inputs = pml.looped_inputs(groups, dev, approx=o["approx"], sigmoid=sig)
+    scal = tuple(o[name] for name in tr._SCALAR_NAMES)
+
+    def replan():
+        return pml.make_plan(X, Y, txs, sc.walls, sc.kind, scal, inputs,
+                             approx=o["approx"], sigmoid=sig,
+                             **{"cull": cull, "shadow": shadow, **plan_kw})
+
+    args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), sc.walls, sc.kind,
+            sc.phi, scal, inputs, replan())
+    return args, dict(approx=o["approx"], sigmoid=sig), (cull, shadow), replan
+
+
+def assert_bitwise(name, a, b) -> None:
+    import torch
+
+    check(torch.equal(a, b), f"{name}: culled and identity-table maps differ at"
+                             f" {int((a != b).sum())} elements")
+    print(f"  {name}: culled == identity tables, bit for bit ({a.numel()} elements)",
+          flush=True)
+
+
 def city_phases(dev, peak_fp32: float) -> list:
     """Phases 7-10: the city path (``Scene.city_extract_scene()``, order
     <= 1, looped kernels with tile culling and occluder lists)."""
@@ -557,37 +653,6 @@ def city_phases(dev, peak_fp32: float) -> list:
     from differt2d_tpu_torch.logic import sigmoid
     from differt2d_tpu_torch.ops import power_map_kernel as pmk
     from differt2d_tpu_torch.ops import power_map_looped as pml
-
-    def request(sc, X, Y, kw, **plan_kw):
-        """The looped wrapper's inputs for ``power_map(sc, X, Y, **kw)``:
-        ``(args, kernel kw, gates, replan)``, with the dispatch's gates
-        unless ``plan_kw`` overrides them; ``replan()`` builds the plan
-        (constants and tables) again."""
-        o = {**tr._OPTIONS, **kw}
-        groups = tr._groups_for(sc, o)
-        check(tr._route(sc, o, groups, "auto", grad=False) == "looped",
-              "the request does not route to the looped kernels")
-        cull, shadow = tr._looped_gates(sc, o, groups)
-        sig = o["function"] is sigmoid
-        target = sc.swap_ends() if o["on_transmitters"] else sc
-        txs = torch.stack(list(target.transmitters.values())).contiguous()
-        inputs = pml.looped_inputs(groups, dev, approx=o["approx"], sigmoid=sig)
-        scal = tuple(o[name] for name in tr._SCALAR_NAMES)
-        def replan():
-            return pml.make_plan(X, Y, txs, sc.walls, sc.kind, scal, inputs,
-                                 approx=o["approx"], sigmoid=sig,
-                                 **{"cull": cull, "shadow": shadow, **plan_kw})
-
-        args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), sc.walls, sc.kind,
-                sc.phi, scal, inputs, replan())
-        return args, dict(approx=o["approx"], sigmoid=sig), (cull, shadow), replan
-
-    def equal(name, a, b):
-        same = torch.equal(a, b)
-        check(same, f"{name}: culled and identity-table maps differ at"
-                    f" {int((a != b).sum())} elements")
-        print(f"  {name}: culled == identity tables, bit for bit ({a.numel()} elements)",
-              flush=True)
 
     # -- 7. the city path at full size ------------------------------------------------------
     n = 1024
@@ -612,16 +677,16 @@ def city_phases(dev, peak_fp32: float) -> list:
     check(Z.shape == X.shape and dZ.shape == (*X.shape, 2), "city path: wrong output shapes")
     check(bool(torch.isfinite(Z).all() and torch.isfinite(dZ).all()), "city path: non-finite")
     check(float(Z.sum()) > 0.0, "city path: the map is all zero")
-    args, kkw, gates, _ = request(city, X, Y, kw)
-    ident, _, _, _ = request(city, X, Y, kw, cull=False, shadow=False)
+    args, kkw, gates, _ = looped_request(city, X, Y, kw, dev)
+    ident, _, _, _ = looped_request(city, X, Y, kw, dev, cull=False, shadow=False)
     print(f"city path gates (cull, shadow): {gates}", flush=True)
     cv = pml.value(*args, **kkw)
     iv = pml.value(*ident, **kkw)
     cvv, cg = pml.value_and_grad(*args, **kkw)
     ivv, ig = pml.value_and_grad(*ident, **kkw)
-    equal("value map 1024^2", cv, iv)
-    equal("vag value 1024^2", cvv, ivv)
-    equal("vag gradient 1024^2", cg, ig)
+    assert_bitwise("value map 1024^2", cv, iv)
+    assert_bitwise("vag value 1024^2", cvv, ivv)
+    assert_bitwise("vag gradient 1024^2", cg, ig)
     check(torch.equal(Z.reshape(-1), cv) and torch.equal(dZ.reshape(-1, 2), cg),
           "power_map's output differs from the wrapper's on the same tables")
 
@@ -630,7 +695,7 @@ def city_phases(dev, peak_fp32: float) -> list:
     # 256^2 map (cfg6/cfg7's size).  Each plain call is timed once.
     m = 256
     Xs, Ys = city_grid(m, dev)
-    a256, _, _, _ = request(city, Xs, Ys, kw)
+    a256, _, _, _ = looped_request(city, Xs, Ys, kw, dev)
     err, plain_ms = {}, {}
     for size, a_t, (Xg, Yg) in ((n, args, (X, Y)), (m, a256, (Xs, Ys))):
         ref, plain_ms[size, False] = timed(lambda: pml.plain_looped_value(*a_t))
@@ -664,16 +729,16 @@ def city_phases(dev, peak_fp32: float) -> list:
         check(pml.LAUNCHES["power_map_looped_value"] > before["power_map_looped_value"]
               and pml.LAUNCHES["power_map_looped_vag"] > before["power_map_looped_vag"],
               f"{name}: the looped kernels did not run")
-        a, kk, gates, _ = request(sc, Xs, Ys, ckw)
-        ia, _, _, _ = request(sc, Xs, Ys, ckw, cull=False, shadow=False)
+        a, kk, gates, _ = looped_request(sc, Xs, Ys, ckw, dev)
+        ia, _, _, _ = looped_request(sc, Xs, Ys, ckw, dev, cull=False, shadow=False)
         print(f"  {name}: gates (cull, shadow) {gates}", flush=True)
         assert_close(f"{name} value", got.reshape(-1), pml.plain_looped_value(*a))
         rv, rg = pml.plain_looped_value_and_grad(*a)
         assert_close(f"{name} vag value", gv.reshape(-1), rv)
         assert_kinks(f"{name} vag gradient", gg.reshape(-1, 2), rg)
-        equal(f"{name} value", got.reshape(-1), pml.value(*ia, **kk))
+        assert_bitwise(f"{name} value", got.reshape(-1), pml.value(*ia, **kk))
         iv, ig = pml.value_and_grad(*ia, **kk)
-        equal(f"{name} vag", torch.cat([gv.reshape(-1), gg.reshape(-1)]),
+        assert_bitwise(f"{name} vag", torch.cat([gv.reshape(-1), gg.reshape(-1)]),
               torch.cat([iv, ig.reshape(-1)]))
 
     # -- 9. autograd through the looped value kernel ------------------------------------------
@@ -701,15 +766,15 @@ def city_phases(dev, peak_fp32: float) -> list:
     for size, (Xt, Yt), a_t, i_t in ((n, (X, Y), args, ident), (m, (Xs, Ys), a256, None)):
         P = Xt.numel()
         if i_t is None:
-            i_t, _, _, _ = request(city, Xt, Yt, kw, cull=False, shadow=False)
+            i_t, _, _, _ = looped_request(city, Xt, Yt, kw, dev, cull=False, shadow=False)
         plan = a_t[-1]
         tables_mb = sum(tp.tables.nbytes for tp in plan.per_tx) / 1e6
-        replan = request(city, Xt, Yt, kw)[3]
+        replan = looped_request(city, Xt, Yt, kw, dev)[3]
         build_ms = cuda_time_ms(replan, k, reps)
         e2e = {g: cuda_time_ms(lambda g=g: power_map(city, Xt, Yt, value_and_grad=g, **kw), k, reps)
                for g in (False, True)}
         t_bytes = tables_mb * 1e6 / HBM_BYTES_PER_S * 1e3
-        t_ops = table_ops(plan, a_t[6].num_candidates, len(city.kinds)) / peak_fp32 * 1e3
+        t_ops = table_ops(plan, a_t[6], len(city.kinds)) / peak_fp32 * 1e3
         print(f"city {size}^2: table build (B7) bound {max(t_bytes, t_ops):.4f} ms (by"
               f" {'operations' if t_ops >= t_bytes else 'bytes'}: {t_bytes:.4f} ms to write the"
               f" tables, {t_ops:.4f} ms of operations), {max(t_bytes, t_ops) / build_ms:.2%} of"
@@ -727,6 +792,7 @@ def city_phases(dev, peak_fp32: float) -> list:
             ident_ms = cuda_time_ms(lambda: fn(*i_t, **kkw), k, reps)
             ops_all, tests_all, kept_all = ops_left(i_t[-1], a_t[6], city.kinds, with_grad)
             ops, tests, kept = ops_left(plan, a_t[6], city.kinds, with_grad)
+            kept, kept_all = kept[1], kept_all[1]
             per_px, per_launch = ops_count(a_t[6].groups, city.kinds, 1, with_grad)
             check(ops_all == P * per_px + per_launch,
                   f"identity-table count {ops_all} != ops_count {P * per_px + per_launch}")
@@ -754,6 +820,296 @@ def city_phases(dev, peak_fp32: float) -> list:
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": None,
                 })
+    return rows
+
+
+def random_city(seed: int, n_buildings: int, device):
+    """``Scene`` of rotated rectangular buildings (4 walls each) and a
+    transmitter, from a NumPy seed."""
+    import numpy as np
+
+    from differt2d_tpu_torch import Scene
+
+    rng = np.random.default_rng(seed)
+    walls = []
+    for _ in range(n_buildings):
+        cx, cy = rng.uniform(0.05, 0.95, 2)
+        w, h = rng.uniform(0.005, 0.03, 2)
+        c, s = np.cos(rng.uniform(0, np.pi)), np.sin(rng.uniform(0, np.pi))
+        pts = [(cx + c * dx - s * dy, cy + s * dx + c * dy)
+               for dx, dy in ((-w, -h), (w, -h), (w, h), (-w, h))]
+        walls += [[pts[i - 1], pts[i]] for i in range(4)]
+    tx = rng.uniform(0.05, 0.95, 2).astype(np.float32)
+    return Scene.from_arrays(np.asarray(walls, np.float32), transmitters={"tx": tx},
+                             receivers={"rx": [0.5, 0.5]}, device=device)
+
+
+def tile_block(X, plan, t: int):
+    """The pixels of tile ``t`` of ``plan`` in the ``[rows, cols]`` grid ``X``."""
+    tw, th = plan.tile
+    r, c = divmod(t, plan.tiles[0])
+    return X[r * th:(r + 1) * th, c * tw:(c + 1) * tw]
+
+
+ORDER2_SIZES = (1024, 256, 32)
+"""Grids of the order-2 phases: the main path, cfg8's own size, coverage."""
+
+
+def order2_phases(dev, peak_fp32: float) -> list:
+    """Phases 15-18: the order-2 city path (``Scene.city_extract_scene()``,
+    ``max_order=2``, looped kernels with middle-segment words and pair
+    kills)."""
+    import torch
+
+    from differt2d_tpu_torch import Scene, eager, power_map
+    from differt2d_tpu_torch.logic import sigmoid
+    from differt2d_tpu_torch.ops import opt_solver_kernel as osk
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+    from differt2d_tpu_torch.ops import power_map_looped as pml
+    from differt2d_tpu_torch.ops.cull_tables import unpack_words
+
+    # -- 15. the order-2 path at full size ------------------------------------------------
+    t_phase = time.perf_counter()
+    n, m, q = ORDER2_SIZES
+    city = Scene.city_extract_scene()
+    X, Y = city_grid(n, dev)
+    kw = dict(max_order=2, approx=True)
+    traced = []
+    trace_group = eager._trace_group
+    eager._trace_group = lambda *a, **k: traced.append(1) or trace_group(*a, **k)
+    pml.reset_launches()
+    others = (dict(pmk.LAUNCHES), dict(osk.LAUNCHES))
+    Z = power_map(city, X, Y, **kw)
+    Zv, dZ = power_map(city, X, Y, value_and_grad=True, **kw)
+    torch.cuda.synchronize()
+    launches = dict(pml.LAUNCHES)
+    eager._trace_group = trace_group
+    print(f"order-2 path launches: {launches}", flush=True)
+    check(launches["power_map_looped_value"] >= 1, "order 2: power_map_looped_value did not run")
+    check(launches["power_map_looped_vag"] >= 1, "order 2: power_map_looped_vag did not run")
+    check((dict(pmk.LAUNCHES), dict(osk.LAUNCHES)) == others,
+          "the order-2 path ran an unrolled or solver kernel")
+    check(not traced, "the order-2 path ran the eager tracer")
+    check(Z.shape == X.shape and dZ.shape == (*X.shape, 2), "order 2: wrong output shapes")
+    check(bool(torch.isfinite(Z).all() and torch.isfinite(dZ).all()), "order 2: non-finite")
+    args, kkw, gates, replan = looped_request(city, X, Y, kw, dev)
+    inputs, plan = args[6], args[7]
+    W = city.num_objects
+    check(inputs.orders == (1, 2) and inputs.num_candidates == W * W,
+          f"order 2: candidate groups {inputs.orders}, {inputs.num_candidates}")
+    print(f"order-2 path gates (cull, shadow): {gates}", flush=True)
+    cv = pml.value(*args, **kkw)
+    cvv, cg = pml.value_and_grad(*args, **kkw)
+    check(torch.equal(Z.reshape(-1), cv) and torch.equal(Zv.reshape(-1), cvv)
+          and torch.equal(dZ.reshape(-1, 2), cg),
+          "order 2: power_map's output differs from the wrapper's on the same tables")
+    # Z includes the order-2 group: more than the order-1 map.
+    z1 = power_map(city, X, Y, max_order=1, approx=True)
+    check(float((Z - z1).sum()) > 0.0, "order 2: the order-2 group adds nothing")
+    del z1
+    ident = looped_request(city, X, Y, kw, dev, cull=False, shadow=False)[0]
+    iv, ident_ms_1024 = timed(lambda: pml.value(*ident, **kkw))
+    assert_bitwise(f"order-2 value map {n}^2", cv, iv)
+    print(f"  identity tables (unculled), one value call {n}^2: {ident_ms_1024:.1f} ms",
+          flush=True)
+    del ident, iv
+    Xs, Ys = city_grid(m, dev)
+    a256 = looped_request(city, Xs, Ys, kw, dev)[0]
+    i256 = looped_request(city, Xs, Ys, kw, dev, cull=False, shadow=False)[0]
+    assert_bitwise(f"order-2 value map {m}^2", pml.value(*a256, **kkw), pml.value(*i256, **kkw))
+    gv, gg = pml.value_and_grad(*a256, **kkw)
+    iv, ig = pml.value_and_grad(*i256, **kkw)
+    assert_bitwise(f"order-2 vag {m}^2", torch.cat([gv, gg.reshape(-1)]),
+                   torch.cat([iv, ig.reshape(-1)]))
+    ident256 = i256
+    # Four 16x16 tiles of the main map, side by side in one 16 x 64 grid:
+    # the two with the most kept order-2 candidates, the transmitter's, a
+    # corner.  Tile bounds, and so tables, are each tile's own.
+    cnt2 = plan.per_tx[0].tables.cnt[-1]
+    tx_xy = city.transmitters["tx"]
+    x0, x1, y0, y1 = pml.tile_bounds(X, Y)
+    cx, cy = 0.5 * (x0 + x1), 0.5 * (y0 + y1)
+    tx_tile = int(((cx - tx_xy[0]) ** 2 + (cy - tx_xy[1]) ** 2).argmin())
+    most = [t for t in torch.argsort(cnt2, descending=True).tolist()[:4] if t not in (tx_tile, 0)]
+    tiles = [most[0], most[1], tx_tile, 0]
+    Xc = torch.cat([tile_block(X, plan, t) for t in tiles], dim=1).contiguous()
+    Yc = torch.cat([tile_block(Y, plan, t) for t in tiles], dim=1).contiguous()
+    at, _, _, _ = looped_request(city, Xc, Yc, kw, dev)
+    tb, tbt = plan.per_tx[0].tables, at[7].per_tx[0].tables
+    for k in range(len(inputs.orders)):
+        check(torch.equal(tbt.cnt[k], tb.cnt[k][tiles])
+              and torch.equal(tbt.prm[k], tb.prm[k][tiles]),
+              "order 2: the four tiles' own tables differ from the map's")
+    print(f"  tiles {tiles} (transmitter's {tx_tile}): kept order-2 candidates"
+          f" {tbt.cnt[-1].tolist()}", flush=True)
+    kt = pml.value(*at, **kkw)
+    ktv, ktg = pml.value_and_grad(*at, **kkw)
+    blocks = lambda A: torch.cat([tile_block(A, plan, t) for t in tiles], dim=1)  # noqa: E731
+    check(torch.equal(kt, blocks(cv.reshape(n, n)).reshape(-1))
+          and torch.equal(ktg, torch.cat([tile_block(cg.reshape(n, n, 2), plan, t)
+                                          for t in tiles], dim=1).reshape(-1, 2)),
+          "order 2: the four tiles' maps differ from the same pixels of the full map")
+    ref, plain_v_ms = timed(lambda: pml.plain_looped_value(*at))
+    err_v = assert_close(f"order-2 value, four tiles of {n}^2", kt, ref)
+    (rv, rg), plain_g_ms = timed(lambda: pml.plain_looped_value_and_grad(*at))
+    err_g = max(assert_close(f"order-2 vag value, four tiles of {n}^2", ktv, rv),
+                assert_kinks(f"order-2 vag gradient, four tiles of {n}^2", ktg, rg))
+    print(f"order-2 path ok at {n}^2: value err {err_v:.3g}, vag err {err_g:.3g}; plain (1,024"
+          f" pixels, one call each) {plain_v_ms:.1f} / {plain_g_ms:.1f} ms", flush=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 16. coverage on a small grid -------------------------------------------------------
+    t_phase = time.perf_counter()
+    Xq, Yq = city_grid(q, dev)
+    basic = Scene.basic_scene()
+    with open(os.path.join(ROOT, "differt2d_tpu_torch", "data", "city_extract.geojson")) as f:
+        features = json.load(f)["features"][:6]
+    six = Scene.from_geojson(json.dumps({"type": "FeatureCollection", "features": features}))
+    big = random_city(7, 75, dev)
+    print(f"sigmoid saturation check on the card: {pml.sigmoid_saturates(dev)}", flush=True)
+    cases = [  # (name, scene, options, whether the value map is looped)
+        ("hard logic", city, dict(max_order=2, approx=False), True),
+        ("sigmoid alpha=3000", city, dict(max_order=2, approx=True, function=sigmoid,
+                                          alpha=3000.0), True),
+        ("city_scene", Scene.city_scene(), kw, True),
+        ("two TX", city.update_transmitters(tx2=[0.5, 0.45]), kw, True),
+        # 300 walls: beyond the JAX kernel's chunk words (its list fallback).
+        ("random city, 300 walls", big, kw, True),
+        ("basic scene, order 2", basic, kw, False),
+        ("basic scene, order 3", basic, dict(max_order=3, approx=True), True),
+        ("6 buildings, order 3", six, dict(max_order=3, approx=True), True),
+    ]
+    for name, sc, ckw, value_looped in cases:
+        t_case = time.perf_counter()
+        before = dict(pml.LAUNCHES)
+        gv, gg = power_map(sc, Xq, Yq, value_and_grad=True, **ckw)
+        check(pml.LAUNCHES["power_map_looped_vag"] > before["power_map_looped_vag"],
+              f"{name}: the looped vag kernel did not run")
+        a, kk, gates, _ = looped_request(sc, Xq, Yq, ckw, dev, grad=True)
+        ia = looped_request(sc, Xq, Yq, ckw, dev, grad=True, cull=False, shadow=False)[0]
+        iv, ig = pml.value_and_grad(*ia, **kk)
+        assert_bitwise(f"{name} vag", torch.cat([gv.reshape(-1), gg.reshape(-1)]),
+                       torch.cat([iv, ig.reshape(-1)]))
+        if value_looped:
+            got = power_map(sc, Xq, Yq, **ckw)
+            check(pml.LAUNCHES["power_map_looped_value"] > before["power_map_looped_value"],
+                  f"{name}: the looped value kernel did not run")
+            assert_bitwise(f"{name} value", got.reshape(-1), pml.value(*ia, **kk))
+        # Against the plain version on the side x side block of the grid
+        # with the most nonzero pixels, side 16 (a tile) or less where the
+        # plain version's work per pixel (blocked tests of every candidate)
+        # is large; the block's tables are its own.
+        work = sc.num_objects * sum(int(c.shape[0]) * (o + 1) for o, c in a[6].cands)
+        side = 16 if work < 10**6 else (8 if work < 2 * 10**7 else 2)
+        nb = q // side
+        lit = (gv != 0).reshape(nb, side, nb, side).sum(dim=(1, 3)).reshape(-1)
+        r0, c0 = (side * v for v in divmod(int(lit.argmax()), nb))
+        Xb = Xq[r0:r0 + side, c0:c0 + side].contiguous()
+        Yb = Yq[r0:r0 + side, c0:c0 + side].contiguous()
+        ab = looped_request(sc, Xb, Yb, ckw, dev, grad=True)[0]
+        kv, (kvv, kg) = pml.value(*ab, **kk), pml.value_and_grad(*ab, **kk)
+        at_ = f"{side}^2 block at ({r0}, {c0})"
+        assert_close(f"{name} value, {at_}", kv, pml.plain_looped_value(*ab))
+        rv, rg = pml.plain_looped_value_and_grad(*ab)
+        assert_close(f"{name} vag value, {at_}", kvv, rv)
+        assert_kinks(f"{name} vag gradient, {at_}", kg, rg)
+        check(float(kv.abs().sum()) > 0.0, f"{name}: the block's map is all zero")
+        print(f"  {name}: gates (cull, shadow) {gates}, orders {a[6].orders},"
+              f" {a[6].num_candidates} candidates, {sc.num_objects} walls;"
+              f" {time.perf_counter() - t_case:.1f} s", flush=True)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 17. autograd through the looped value kernel -----------------------------------------
+    t_phase = time.perf_counter()
+
+    # On the 6 buildings (1,296 candidates): the backward is the plain
+    # tracer's VJP over every candidate of every pixel.
+    def scene_grads(backend):
+        walls = six.walls.detach().clone().requires_grad_(True)
+        tx = six.transmitters["tx"].detach().clone().requires_grad_(True)
+        alpha = torch.tensor(100.0, device=dev, requires_grad=True)
+        sc = Scene.from_arrays(walls, six.kind, six.phi, {"tx": tx}, six.receivers)
+        out = power_map(sc, Xq, Yq, max_order=2, approx=True, alpha=alpha, backend=backend)
+        return (out, *torch.autograd.grad(out.sum(), (walls, tx, alpha)))
+
+    before = pml.LAUNCHES["power_map_looped_value"]
+    got = scene_grads("auto")
+    check(pml.LAUNCHES["power_map_looped_value"] > before,
+          "order-2 autograd: the looped kernel did not run")
+    ref = scene_grads("torch")
+    for name, a_, b_ in zip(("value", "d/dwalls", "d/dtx", "d/dalpha"), got, ref):
+        assert_close(f"order-2 autograd {name}", a_, b_)
+    check(float(got[2].abs().sum()) > 0.0, "order-2 autograd: d/dtx is zero")
+    print(f"autograd through the order-2 looped kernel ok; phase 17:"
+          f" {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 18. timing ---------------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    rows = []
+    for size, (Xt, Yt), a_t, reps_k in ((n, (X, Y), args, 2), (m, (Xs, Ys), a256, 4)):
+        P = Xt.numel()
+        pl = a_t[7]
+        tables_mb = sum(tp.tables.nbytes for tp in pl.per_tx) / 1e6
+        prm2_mb = pl.per_tx[0].tables.prm[-1].numel() * 4 / 1e6
+        rp = looped_request(city, Xt, Yt, kw, dev)[3]
+        build_ms = cuda_time_ms(rp, reps_k, 5)
+        e2e = {g: cuda_time_ms(lambda g=g: power_map(city, Xt, Yt, value_and_grad=g, **kw),
+                               reps_k, 5) for g in (False, True)}
+        t_bytes = tables_mb * 1e6 / HBM_BYTES_PER_S * 1e3
+        t_ops = table_ops(pl, a_t[6], W) / peak_fp32 * 1e3
+        print(f"order-2 city {size}^2: table build {build_ms:.4f} ms/map ({tables_mb:.2f} MB of"
+              f" tables, prm_2 {prm2_mb:.2f} MB, refine {pml.refine_for(a_t[6].num_candidates)});"
+              f" its bound {max(t_bytes, t_ops):.4f} ms (by"
+              f" {'operations' if t_ops >= t_bytes else 'bytes'}), {max(t_bytes, t_ops) / build_ms:.2%}"
+              f" of the build; end to end power_map value {e2e[False]:.4f} ms/map"
+              f" ({P / e2e[False] * 1e3:.4g} points/s), value+grad {e2e[True]:.4f} ms/map"
+              f" ({P / e2e[True] * 1e3:.4g} points/s)", flush=True)
+        mid = unpack_words(pl.per_tx[0].tables.midw, W).float().mean()
+        if size == m:
+            ident_ms = cuda_time_ms(lambda: pml.value(*ident256, **kkw), 1, 3)
+        for name, with_grad in (("power_map_looped_value", False),
+                                ("power_map_looped_vag", True)):
+            fn = pml.value_and_grad if with_grad else pml.value
+            before = pml.LAUNCHES[name]
+            ms = cuda_time_ms(lambda: fn(*a_t, **kkw), reps_k, 5)
+            per_map = (pml.LAUNCHES[name] - before) / (reps_k * 5 + 1)
+            ops, tests, kept = ops_left(pl, a_t[6], city.kinds, with_grad)
+            per_px, per_launch = ops_count(a_t[6].groups, city.kinds, 1, with_grad)
+            ops_all = P * per_px + per_launch
+            tests_all = P * sum(cand_ops([int(i) for i in r], city.kinds, False)[1]
+                                for g in a_t[6].groups.values() for r in g)
+            if size == m:
+                ops_i, _, _ = ops_left(ident256[7], a_t[6], city.kinds, with_grad)
+                check(ops_i == ops_all, f"identity-table count {ops_i} != ops_count {ops_all}")
+            out_b = P * (8 + (12 if with_grad else 4))
+            t_bytes = (out_b + tables_mb * 1e6) / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / peak_fp32 * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound_all = max(out_b / HBM_BYTES_PER_S * 1e3, ops_all / peak_fp32 * 1e3)
+            shares = ", ".join(f"order {o}: {kept[o] / (P * int(c.shape[0])):.2%}"
+                               for o, c in a_t[6].cands)
+            line = (f"{name} order 2 {size}^2: culled {ms:.4f} ms/map ({P / ms * 1e3:.4g}"
+                    f" points/s, {per_map:g} launches/map); bound (tables' work) {bound_ms:.4f}"
+                    f" ms = {bound_ms / ms:.1%} of culled; bound (unculled) {bound_all:.4f} ms;"
+                    f" kept candidate-pixels {shares}; blocked tests left {tests / tests_all:.3%}"
+                    f" ({ops / P:.0f} vs {ops_all / P:.0f} ops/px); middle-segment words list"
+                    f" {float(mid):.1%} of the walls")
+            if size == m and not with_grad:
+                line += f"; identity tables (unculled) {ident_ms:.1f} ms/map"
+            if size == n and not with_grad:
+                line += f"; identity tables (unculled) {ident_ms_1024:.1f} ms (one call)"
+            print(line, flush=True)
+            if size == n:
+                rows.append({
+                    "name": name, "route": "cuda", "source": LOOPED_SOURCE,
+                    "replaces": LOOPED_REPLACES, "path": "order-2 city (B5b)",
+                    "launches": launches[name], "max_abs_err": err_g if with_grad else err_v,
+                    "ms": ms, "plain_ms": plain_g_ms if with_grad else plain_v_ms,
+                    "plain_pixels": int(at[0].numel()), "bound_ms": bound_ms,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": None,
+                })
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
 

@@ -1,14 +1,17 @@
 """Culling tables of the looped power-map kernels, as PyTorch ops.
 
 Counterpart of the table builders of ``differt2d_tpu/ops/pallas_kernels.py``
-that the order <= 1 city path runs (``B7`` in ROADMAP.md):
+that the city paths run (``B7`` in ROADMAP.md):
 
 * :func:`first_wall_visibility_dead` -- exact per-first-wall occlusion kill;
+* :func:`pair_occlusion_dead` -- exact per-wall-pair kill of middle
+  segments (orders >= 2);
 * :func:`beam_keep_tables` -- per-(tile, candidate) keep bits from the beam
-  proof on ``refine x refine`` sub-boxes, plus the first-wall kill;
+  proof on ``refine x refine`` sub-boxes, plus both kills;
 * :func:`_shadow_geometry`, :func:`_occluder_masks` and
   :func:`shadow_wall_lists` -- occluder sets of the first, last and
-  line-of-sight path segments;
+  line-of-sight path segments; :func:`mid_masks` those of middle segments
+  (the mask ``mid_pair_masks`` packs into chunk words);
 * :func:`_span_covered` -- union coverage of intervals (sort + cummax).
 
 Each returns the JAX function's arrays in its layout, computed with the same
@@ -24,8 +27,12 @@ activations are flat there (``hard_sigmoid`` at ``|z| >= 3``; the kernels'
 ``1 / (1 + expf(-z))`` at ``z <= -90`` and ``z >= 20``, checked on the device
 before sigmoid maps cull), so the min/max selects carry zeros.  The proofs
 bound ``t`` over a tile box with interval arithmetic, backed off by the pads
-``_CULL_PAD_ABS/REL`` against float32 rounding.  Interval occlusion proofs,
-pair kills and the chunk-word form of order >= 2 are not ported.
+``_CULL_PAD_ABS/REL`` against float32 rounding.  The interval occlusion
+proofs are not ported.  Nor is the JAX package's 8-wall chunk-word form of
+the occluder sets for orders >= 2 (``shadow_chunk_words``,
+``mid_pair_masks``, with a list fallback above 256 walls): it answered the
+TPU's compiler and scalar memory, and the kernels here read every set,
+middle segments included, as per-wall bit words.
 """
 
 from __future__ import annotations
@@ -232,6 +239,121 @@ def first_wall_visibility_dead(walls32, kind, tx, patch, alpha, approx, sigmoid,
     return dead & geo["hz_free"]
 
 
+# Lanes of one [downstream walls, upstream walls, blockers] slab of
+# pair_occlusion_dead.
+_PAIR_CHUNK = 1 << 22
+
+
+def pair_occlusion_dead(walls32, kind, tx, patch, alpha, approx, sigmoid, tol):
+    """Exact per-(upstream, downstream)-wall kill ``dead[W, W]`` (bool) for
+    middle path segments.
+
+    ``dead[i, j]``: every candidate with consecutive walls ``(i, j)``
+    contributes exact zeros at every pixel.  The middle segment runs from
+    wall ``i``'s pad-grown contains span to wall ``j``'s line; each blocker
+    casts, from each of the span's two endpoints, a shadow interval on wall
+    ``j`` (:func:`first_wall_visibility_dead`'s projection with the
+    transmitter replaced by the endpoint), and the crossing ratio is affine
+    in the source and the blocker point, so its extremes over span x
+    blocker lie at the four endpoint pairs.  A blocker whose four ratios
+    are strictly in band casts the intersection of its two intervals, and
+    ``dead[i, j]`` iff their union covers wall ``j``'s span.  Pairs with a
+    vertex or zero-length wall are never killed; under the hazard gate
+    nothing is.  One ``[W, W, W]`` sweep, in slabs of downstream walls.
+    """
+    dev = walls32.device
+    W = walls32.shape[0]
+    a = walls32[:, 0, :]
+    b = walls32[:, 1, :]
+    d = b - a
+    dd = _sum2(d * d)
+    kind_i32 = kind.to(torch.int32)
+    band0, band1 = _bands(alpha, approx, sigmoid, dev)
+    seg_tol = 0.005
+    pad_t = 0.01
+    pad = _CULL_PAD_ABS + _CULL_PAD_REL * (1.0 + band0)
+    span_lo = -(band0 + pad_t) - pad
+    span_hi = 1.0 + band0 + pad_t + pad
+
+    S1 = a + span_lo * d
+    S2 = a + span_hi * d
+    p_f = _f32(patch, dev)
+    aw = a - p_f * d
+    av = (b + p_f * d) - aw
+    blo = band1 - seg_tol + pad
+    bhi = 1.0 + seg_tol - band1 - pad
+    P1 = aw + blo * av
+    P2 = aw + bhi * av
+    wall_usable = (kind_i32 != KIND_VERTEX) & (dd > 0.0)
+    blocker_ok = wall_usable & (bhi > blo)
+
+    n_j = torch.stack([d[:, 1], -d[:, 0]], dim=-1)
+    a_dot_n = _sum2(a * n_j)
+    scale = torch.clamp_min(torch.max(torch.abs(walls32)), 1.0)
+    floor = 1e-4 * scale * scale
+
+    def dots(q, v):  # [W_q, 2] x [W_j, 2] -> [W_j, W_q], as a 2-term einsum
+        return q[None, :, 0] * v[:, None, 0] + q[None, :, 1] * v[:, None, 1]
+
+    s_S1 = dots(S1, n_j) - a_dot_n[:, None]  # [W_j, W_i]
+    s_S2 = dots(S2, n_j) - a_dot_n[:, None]
+    s_P1 = dots(P1, n_j) - a_dot_n[:, None]  # [W_j, W_k]
+    s_P2 = dots(P2, n_j) - a_dot_n[:, None]
+    src_ok = (torch.abs(s_S1) > floor) & (torch.abs(s_S2) > floor) & (s_S1 * s_S2 > 0.0)
+
+    lam_margin = 1e-3
+    lam_lo = torch.clamp_min(band1 - seg_tol + pad, lam_margin)
+    lam_hi = torch.clamp_max(1.0 + seg_tol - band1 - pad, 1.0 - lam_margin)
+    inv_dd = 1.0 / torch.where(dd > 0.0, dd, torch.ones_like(dd))
+    ad = _sum2(a * d)
+    Sd1, Sd2 = dots(S1, d), dots(S2, d)  # [W_j, W_i] = S . d_j
+    Pd1, Pd2 = dots(P1, d), dots(P2, d)  # [W_j, W_k]
+    rng = torch.arange(W, device=dev)
+    not_i = rng[None, :] != rng[:, None]  # [W_i, W_k]
+
+    def lam(s_src, s_p):
+        safe = torch.where(torch.abs(s_src) > floor, s_src, torch.ones_like(s_src))
+        return 1.0 - s_p / safe
+
+    def t_proj(Sd, s_S, Pd, s_p, js):  # [W_j, W_i, W_k] parameters on wall j
+        den = s_S[:, :, None] - s_p[:, None, :]
+        den = torch.where(torch.abs(den) > 0.0, den, torch.ones_like(den))
+        u = s_S[:, :, None] / den
+        qd = Sd[js][:, :, None] + u * (Pd[js][:, None, :] - Sd[js][:, :, None])
+        return (qd - ad[js][:, None, None]) * inv_dd[js][:, None, None]
+
+    dead_ji = []
+    step = max(1, _PAIR_CHUNK // max(W * W, 1))
+    for j0 in range(0, W, step):
+        js = slice(j0, min(j0 + step, W))
+        sS1, sS2, sP1, sP2 = s_S1[js], s_S2[js], s_P1[js], s_P2[js]
+        sgi = torch.sign(sS1)[:, :, None]
+        side_ok = (sP1[:, None, :] * sgi > floor) & (sP2[:, None, :] * sgi > floor)
+        lam_ok = torch.ones_like(side_ok)
+        for src, blk in ((sS1, sP1), (sS1, sP2), (sS2, sP1), (sS2, sP2)):
+            lv = lam(src[:, :, None], blk[:, None, :])
+            lam_ok = lam_ok & (lv > lam_lo) & (lv < lam_hi)
+        tA1 = t_proj(Sd1, sS1, Pd1, sP1, js)
+        tA2 = t_proj(Sd1, sS1, Pd2, sP2, js)
+        tB1 = t_proj(Sd2, sS2, Pd1, sP1, js)
+        tB2 = t_proj(Sd2, sS2, Pd2, sP2, js)
+        lo = torch.maximum(torch.minimum(tA1, tA2), torch.minimum(tB1, tB2))
+        hi = torch.minimum(torch.maximum(tA1, tA2), torch.maximum(tB1, tB2))
+        t_pad = _CULL_PAD_ABS + _CULL_PAD_REL * torch.maximum(torch.abs(lo), torch.abs(hi))
+        rj = rng[js]
+        valid_iv = (
+            side_ok & lam_ok & src_ok[js][:, :, None] & blocker_ok[None, None, :]
+            & wall_usable[None, :, None] & wall_usable[js][:, None, None]
+            & not_i[None, :, :] & (rng[None, None, :] != rj[:, None, None])
+        )
+        starts = torch.where(valid_iv, lo + t_pad, torch.full_like(lo, float("inf")))
+        ends = torch.where(valid_iv, hi - t_pad, torch.full_like(hi, -float("inf")))
+        dead_ji.append(_span_covered(starts, ends, span_lo, span_hi))
+    dead = torch.cat(dead_ji).T if W else torch.zeros(0, 0, dtype=torch.bool, device=dev)
+    geo = _shadow_geometry(walls32, kind, tx, patch, alpha, approx, sigmoid, tol)
+    return dead & geo["hz_free"]
+
+
 def _ival(F, bx0, bx1, by0, by1):
     """Interval of the affine form ``F = (F0, Fx, Fy)`` (each ``[C]``) over
     boxes (each ``[B]``): ``([B, C], [B, C])``."""
@@ -276,7 +398,9 @@ def beam_keep_tables(
     tile when, on every one of the ``refine x refine`` sub-boxes of the
     tile, some non-vertex bounce's parameter lies (pad-widened) outside the
     band where ``contains`` is nonzero, or when its first wall is dead
-    (:func:`first_wall_visibility_dead`, given ``tx`` and ``tol``).
+    (:func:`first_wall_visibility_dead`, given ``tx`` and ``tol``), or when
+    two of its consecutive walls form a dead pair
+    (:func:`pair_occlusion_dead`, at orders >= 2).
 
     ``groups`` maps orders to ``int32[C, order]``, ``img_chains`` orders to
     the transmitter's mirror-image chains ``[C, order, 2]``, and the tile
@@ -302,11 +426,16 @@ def beam_keep_tables(
     sub_y0 = gy0.repeat(R, 1)
     sub_y1 = gy1.repeat(R, 1)
 
-    first_dead = None
+    first_dead = pair_dead = None
     if tx is not None and tol is not None:
+        patch_f = 0.0 if patch is None else patch
         first_dead = first_wall_visibility_dead(
-            walls32, kind, tx, 0.0 if patch is None else patch, alpha, approx, sigmoid, tol
+            walls32, kind, tx, patch_f, alpha, approx, sigmoid, tol
         )
+        if any(o >= 2 for o in cand_orders):
+            pair_dead = pair_occlusion_dead(
+                walls32, kind, tx, patch_f, alpha, approx, sigmoid, tol
+            )
 
     keep_by_order = {}
     for o in cand_orders:
@@ -394,6 +523,9 @@ def beam_keep_tables(
             zero &= culled.reshape(nb, T, C).all(dim=0)
         if first_dead is not None and o >= 1:
             zero = zero | first_dead[cand[:, 0]][None, :]
+        if pair_dead is not None:
+            for s in range(1, o):
+                zero = zero | pair_dead[cand[:, s - 1], cand[:, s]][None, :]
         keep_by_order[o] = ~zero
     return keep_by_order
 
@@ -435,6 +567,41 @@ def last_masks(geo, x0, x1, y0, y1) -> torch.Tensor:
     hlhi = torch.maximum(thi[:, None, :], geo["lhi"][None, :, :])
     rng = torch.arange(W, device=x0.device)
     return _hull_mask(geo, hllo, hlhi) & (rng[None, :] != rng[:, None])[None]
+
+
+def mid_masks(geo, upstream=slice(None)) -> torch.Tensor:
+    """``mmid[I, W, W]``: occluders of a middle segment, per upstream wall
+    ``i`` (those of ``upstream``) and downstream wall ``j`` (hull of the two
+    dilated walls, both walls excluded); every wall under the hazard gate.
+
+    The segment b_s -> b_{s+1} of an order >= 2 candidate lies in that hull
+    wherever both bounces' ``contains`` are nonzero, so the argument of
+    :func:`shadow_wall_lists` holds per wall pair, for every tile.
+    """
+    llo, lhi = geo["llo"], geo["lhi"]
+    W = llo.shape[0]
+    rng = torch.arange(W, device=llo.device)
+    up = rng[upstream]
+    hlo = torch.minimum(llo[up][:, None, :], llo[None, :, :])
+    hhi = torch.maximum(lhi[up][:, None, :], lhi[None, :, :])
+    mask = (_hull_mask(geo, hlo, hhi) & (rng[None, None, :] != up[:, None, None])
+            & (rng[None, None, :] != rng[None, :, None]))
+    return torch.where(geo["hz_free"], mask, torch.ones_like(mask))
+
+
+# Elements of one [upstream walls, W, W] slab of mid_words.
+_MID_SLAB = 1 << 24
+
+
+def mid_words(geo) -> torch.Tensor:
+    """:func:`mid_masks` of every wall pair in the kernels' form:
+    ``int32[W * W, ceil(W / 32)]``, row ``i * W + j``."""
+    W = geo["llo"].shape[0]
+    step = max(1, _MID_SLAB // max(W * W, 1))
+    words = [pack_words(mid_masks(geo, slice(s, s + step))) for s in range(0, W, step)]
+    if not words:
+        return torch.zeros(0, 0, dtype=torch.int32, device=geo["llo"].device)
+    return torch.cat(words).reshape(W * W, -1)
 
 
 def los_masks(geo, tx, x0, x1, y0, y1) -> torch.Tensor:

@@ -2,21 +2,23 @@
 
 Run from the root of a checkout, with one CUDA device:
 
-    python -m differt2d_tpu_torch.ops.looped_tuning
+    python -m differt2d_tpu_torch.ops.looped_tuning [--order 2]
 
-For the city extract (136 walls, order <= 1, soft logic, hard_sigmoid,
-alpha 100) on a 1024 x 1024 grid it prints:
+For the city extract (136 walls, soft logic, hard_sigmoid, alpha 100) on a
+1024 x 1024 grid, at orders <= 1 (the default) or <= 2, it prints:
 
 * a ``torch.profiler`` trace of one end-to-end ``power_map``: the device
   time in kernel launches against the host clock (the card's idle share),
   and the largest kernels;
-* for each (tile, refine) of :data:`SWEEP`: the table build and the culled
-  value kernel per map (CUDA events, 4 maps chained, median of 3).
+* for each (tile, refine) of :data:`SWEEP` (order <= 1) or
+  :data:`SWEEP_ORDER2`: the table build and the culled value kernel per map
+  (CUDA events, maps chained, median of 3), and the share of each order's
+  candidate-pixels the tables keep.
 
-This sweep chose :data:`power_map_looped.TILE` and
-:data:`power_map_looped.REFINE` (PERF.md, Findings).  Each sweep point sets
-its refine by patching :data:`power_map_looped.REFINE`: the library itself
-has no refine option.
+These sweeps chose :data:`power_map_looped.TILE` and the refine of
+:func:`power_map_looped.refine_for` (PERF.md, Findings).  Each sweep point
+sets its refine by patching :func:`power_map_looped.refine_for`: the library
+itself has no refine option.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ import torch
 
 SWEEP = (((16, 8), 4), ((16, 16), 4), ((32, 8), 4), ((8, 32), 4), ((16, 16), 2),
          ((16, 16), 8))
-"""``((tile columns, tile rows), refine)`` points of the sweep."""
+"""``((tile columns, tile rows), refine)`` points of the order <= 1 sweep."""
+SWEEP_ORDER2 = (((16, 16), 1), ((16, 16), 2), ((16, 16), 4), ((16, 16), 8), ((16, 16), 16))
+"""The same for order <= 2 (refine 16 is timed on one map: its build takes
+seconds)."""
 
 
 def cuda_time_ms(fn, k: int, reps: int) -> float:
@@ -76,7 +81,7 @@ def profile_one_map(city, X, Y, kw) -> None:
               flush=True)
 
 
-def main(n: int = 1024) -> int:
+def main(n: int = 1024, order: int = 1) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("looped_tuning needs a CUDA device")
     from .. import Scene
@@ -92,7 +97,7 @@ def main(n: int = 1024) -> int:
     city = Scene.city_extract_scene(device=dev)
     x = torch.linspace(0.01, 0.99, n, device=dev)
     X, Y = torch.meshgrid(x, x, indexing="xy")
-    kw = dict(max_order=1, approx=True)
+    kw = dict(max_order=order, approx=True)
     profile_one_map(city, X, Y, kw)
 
     o = {**tr._OPTIONS, **kw}
@@ -100,20 +105,27 @@ def main(n: int = 1024) -> int:
     txs = torch.stack(list(city.transmitters.values())).contiguous()
     scal = tuple(o[name] for name in tr._SCALAR_NAMES)
     px, py = X.reshape(-1).contiguous(), Y.reshape(-1).contiguous()
-    for tile, refine in SWEEP:
+    for tile, refine in (SWEEP if order <= 1 else SWEEP_ORDER2):
         def replan(tile=tile):
             return pml.make_plan(X, Y, txs, city.walls, city.kind, scal, inputs, approx=True,
                                  sigmoid=False, tile=tile)
 
-        with mock.patch.object(pml, "REFINE", refine):
-            t_build = cuda_time_ms(replan, 4, 3)
+        k, reps = (1, 1) if refine >= 16 else (4 if order <= 1 else 2, 3)
+        with mock.patch.object(pml, "refine_for", lambda num_candidates, r=refine: r):
+            t_build = cuda_time_ms(replan, k, reps)
             plan = replan()
         t_run = cuda_time_ms(lambda: pml.value(px, py, city.walls, city.kind, city.phi, scal,
-                                               inputs, plan, approx=True, sigmoid=False), 4, 3)
+                                               inputs, plan, approx=True, sigmoid=False), k, reps)
+        tb = plan.per_tx[0].tables
+        kept = ", ".join(f"order {o}: {float(c.sum()) / p.numel():.2%}"
+                         for o, p, c in zip(inputs.orders, tb.prm, tb.cnt))
         print(f"tile {tile[0]}x{tile[1]} refine {refine}: tables {t_build:.4f} + kernel"
-              f" {t_run:.4f} = {t_build + t_run:.4f} ms/map", flush=True)
+              f" {t_run:.4f} = {t_build + t_run:.4f} ms/map; kept {kept}", flush=True)
+        del plan
+        torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(order=int(sys.argv[sys.argv.index("--order") + 1]) if "--order" in sys.argv
+                  else 1))

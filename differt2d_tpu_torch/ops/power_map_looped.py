@@ -2,8 +2,8 @@
 
 Two hand-written kernels in ``csrc/power_map_looped.cu`` replace the looped
 Pallas kernel ``differt2d_tpu/ops/pallas_kernels.py::build_power_map_kernel_looped``
-with ``cull=True, shadow=True`` on candidates of order <= 1 (B3, B4 and the
-list form of B5):
+with ``cull=True, shadow=True`` on candidates of orders <= 4 (B3, B4 and
+B5: occluder sets of the first, last, line-of-sight and middle segments):
 
 * ``power_map_looped_value`` -- the map ``[P]``;
 * ``power_map_looped_vag`` -- the map and its pixel gradient
@@ -11,8 +11,8 @@ list form of B5):
 
 A request is planned per transmitter (:func:`make_plan`): the per-launch
 constants (unit normals and patched endpoints of the walls, the
-transmitter's mirror image per candidate), the culling tiles' bounds, and
-the tables of :mod:`.cull_tables` in the kernels' form.  ``cull=False``
+transmitter's mirror-image chain per candidate), the culling tiles' bounds,
+and the tables of :mod:`.cull_tables` in the kernels' form.  ``cull=False``
 gives every tile every candidate, ``shadow=False`` every segment every
 wall: with both off ("identity tables") the same program is the unculled
 looped kernel, and its maps equal the culled ones bit for bit.
@@ -48,7 +48,7 @@ from .power_map_kernel import (
 )
 
 SOURCE = "power_map_looped.cu"
-MAX_ORDER = 1
+MAX_ORDER = 4
 """Highest candidate order the looped kernels take (``LP_MAX_ORDER``)."""
 MAX_WALLS = 512
 """Most objects the looped kernels take (``LP_MAX_WALLS``, shared memory)."""
@@ -64,11 +64,27 @@ table build grows with the tile count, the kernel barely moves).  Smaller
 grids were not tuned: at 256 x 256 the table build alone costs more than
 the unculled kernel."""
 REFINE = 4
-"""Sub-boxes per tile side in :func:`cull_tables.beam_keep_tables`.
-Chosen with :data:`TILE`, on the same map: refine 4 built its tables in
-about half the time of refine 8, and the culled kernel ran as fast (the
-extra candidates it keeps are a fraction of a percent of the work); 16
-doubles the build again."""
+"""Sub-boxes per tile side in :func:`cull_tables.beam_keep_tables` for
+requests of at most 1000 candidates (:func:`refine_for`).  Chosen with
+:data:`TILE` on the order-1 city map: refine 4 built its tables in about
+half the time of refine 8, and the culled kernel ran as fast (the extra
+candidates it keeps are a fraction of a percent of the work); 16 doubles
+the build again."""
+REFINE_LARGE = 1
+"""The same above 1000 candidates, chosen on the order-2 city map (18,496
+candidates, 1024 x 1024, 16 x 16 tiles, :mod:`.looped_tuning`): the build
+grows with the square of the refine (60 ms at 1, 143 ms at 2, 0.51 s at 4,
+2.0 s at 8, 7.8 s at 16 on an H100) while the culled value kernel gains
+under 4% (27.1 ms at 1, 25.7 ms at 8: the finer proofs keep 0.51% against
+0.54% of the order-2 candidate-pixels)."""
+
+
+def refine_for(num_candidates: int) -> int:
+    """Refine of the beam proof for a request of ``num_candidates``
+    candidates (orders >= 1), keyed on the count as the JAX package keys
+    its own (8 or 16, tuned on a TPU)."""
+    return REFINE if num_candidates <= 1000 else REFINE_LARGE
+
 
 LAUNCHES = {"power_map_looped_value": 0, "power_map_looped_vag": 0}
 """Launches of each kernel since the process started (or was reset)."""
@@ -92,21 +108,31 @@ def kernel_caps_reason(num_walls: int, max_order: int) -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True)
 class LoopedInputs:
-    """Device inputs derived from a candidate set of orders <= 1.
+    """Device inputs derived from a candidate set of orders <= :data:`MAX_ORDER`.
 
-    ``cand`` is ``int32[C]``, the wall of each order-1 candidate; ``groups``
-    the host candidate matrices; ``eager`` the same set for the plain
-    versions and the backward.
+    ``cands`` holds one ``(order, int32[C_o, order])`` pair per order >= 1
+    with candidates, in ascending order (the kernels' candidate groups, each
+    row the walls of one candidate); ``groups`` the host candidate matrices;
+    ``eager`` the same set for the plain versions and the backward.
     """
 
-    cand: torch.Tensor
+    cands: tuple
     has_los: bool
     groups: dict
     eager: eager.EagerSpec
 
     @property
+    def orders(self) -> tuple:
+        return tuple(o for o, _ in self.cands)
+
+    @property
+    def max_order(self) -> int:
+        return max(self.orders, default=0)
+
+    @property
     def num_candidates(self) -> int:
-        return int(self.cand.shape[0])
+        """Candidates of orders >= 1 (the line of sight is not listed)."""
+        return sum(int(c.shape[0]) for _, c in self.cands)
 
 
 def looped_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> LoopedInputs:
@@ -116,9 +142,12 @@ def looped_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> Loope
         raise ValueError(msg)
 
     def make():
-        g1 = np.asarray(groups.get(1, np.zeros((0, 1), np.int32)), np.int32).reshape(-1, 1)
+        cands = tuple(
+            (o, torch.from_numpy(np.array(g, dtype=np.int32).reshape(-1, o)).to(device))
+            for o, g in sorted(groups.items()) if o >= 1 and g.shape[0]
+        )
         return LoopedInputs(
-            cand=torch.from_numpy(np.array(g1[:, 0], dtype=np.int32)).to(device),
+            cands=cands,
             has_los=bool(0 in groups and groups[0].shape[0]),
             groups={o: np.asarray(g) for o, g in groups.items() if g.shape[0]},
             eager=eager.EagerSpec(
@@ -137,29 +166,36 @@ def looped_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> Loope
 @dataclasses.dataclass(frozen=True)
 class Tables:
     """The kernels' tables for one transmitter (layouts in the .cu header):
-    ``prm int32[T, C]``, ``cnt int32[T]``, ``l0w int32[W, NW]``,
-    ``lastw int32[T, W, NW]``, ``losw int32[T, NW]``."""
+    per candidate group of :attr:`LoopedInputs.cands`, ``prm[k] int32[T,
+    C_o]`` and ``cnt[k] int32[T]``; ``l0w int32[W, NW]``, ``lastw int32[T,
+    W, NW]``, ``losw int32[T, NW]`` and, with middle segments (order >= 2),
+    ``midw int32[W * W, NW]`` (else ``[0, NW]``)."""
 
-    prm: torch.Tensor
-    cnt: torch.Tensor
+    prm: tuple
+    cnt: tuple
     l0w: torch.Tensor
     lastw: torch.Tensor
     losw: torch.Tensor
+    midw: torch.Tensor
+
+    @property
+    def tensors(self) -> tuple:
+        return (*self.prm, *self.cnt, self.l0w, self.lastw, self.losw, self.midw)
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in dataclasses.astuple(self))
+        return sum(t.numel() * t.element_size() for t in self.tensors)
 
 
 @dataclasses.dataclass(frozen=True)
 class TxPlan:
     """One transmitter's launch: its position ``tx[2]``, the walls' unit
-    normals and patched endpoints ``aux[W, 6]``, the candidates' mirror
-    images ``img[C, 2]`` and the tables."""
+    normals and patched endpoints ``aux[W, 6]``, per candidate group the
+    mirror-image chains ``imgs[k] float32[C_o, o, 2]``, and the tables."""
 
     tx: torch.Tensor
     aux: torch.Tensor
-    img: torch.Tensor
+    imgs: tuple
     tables: Tables
 
 
@@ -203,10 +239,11 @@ def tile_bounds(X: torch.Tensor, Y: torch.Tensor, tile=TILE):
 
 
 def launch_constants(walls: torch.Tensor, tx: torch.Tensor, patch, inputs: LoopedInputs):
-    """``(normals[W, 2], aux[W, 6], img[C, 2])``: unit normals, normals and
-    patched endpoints as the kernels read them, and the transmitter's
-    mirror image through each candidate's wall (the formulas of
-    ``pallas_kernels.py:3251-3281``)."""
+    """``(normals[W, 2], aux[W, 6], imgs)``: unit normals, normals and
+    patched endpoints as the kernels read them, and per candidate group the
+    transmitter's mirror-image chain through the candidate's walls,
+    ``float32[C_o, o, 2]`` (the formulas of ``pallas_kernels.py:3251-3281``;
+    a vertex, whose normal is 0, mirrors nothing)."""
     a, b = walls[:, 0, :], walls[:, 1, :]
     t_vec = b - a
     n_raw = torch.stack([t_vec[:, 1], -t_vec[:, 0]], dim=-1)
@@ -214,38 +251,48 @@ def launch_constants(walls: torch.Tensor, tx: torch.Tensor, patch, inputs: Loope
     normals = n_raw / torch.where(n_len == 0.0, torch.ones_like(n_len), n_len)
     patch_t = torch.as_tensor(patch, dtype=torch.float32, device=walls.device)
     aux = torch.cat([normals, a - patch_t * t_vec, b + patch_t * t_vec], dim=-1)
-    idx = inputs.cand.long()
-    wn, wa = normals[idx], walls[idx, 0, :]
-    cur = tx[None, :].expand(idx.shape[0], 2)
-    d = cull_tables._sum2((cur - wa) * wn)[:, None]
-    img = cur - 2.0 * d * wn
-    return normals, aux.contiguous(), img.contiguous()
+    imgs = []
+    for o, cand in inputs.cands:
+        cur = tx[None, :].expand(cand.shape[0], 2)
+        chain = []
+        for j in range(o):
+            idx = cand[:, j].long()
+            wn, wa = normals[idx], walls[idx, 0, :]
+            d = cull_tables._sum2((cur - wa) * wn)[:, None]
+            cur = cur - 2.0 * d * wn
+            chain.append(cur)
+        imgs.append(torch.stack(chain, dim=1).contiguous())
+    return normals, aux.contiguous(), tuple(imgs)
 
 
 # Elements of one slab of the last-segment masks ([tiles, W, W] bools).
 _LAST_SLAB = 1 << 25
 
 
-def build_tables(walls, kind, tx, normals, img, inputs: LoopedInputs, bounds,
+def build_tables(walls, kind, tx, normals, imgs, inputs: LoopedInputs, bounds,
                  scalars, *, approx: bool, sigmoid: bool, cull: bool, shadow: bool) -> Tables:
     """The kernels' tables for one transmitter: the beam proof's kept
-    candidates (``cull``) and the occluder bit words (``shadow``).  Where a
-    flag is off its tables are identity tables: every candidate in every
-    tile, every wall on every list."""
+    candidates of each group (``cull``) and the occluder bit words
+    (``shadow``).  Where a flag is off its tables are identity tables:
+    every candidate in every tile, every wall on every list."""
     alpha, tol, patch = scalars[0], scalars[1], scalars[2]
     x0, x1, y0, y1 = bounds
-    T, C, W, dev = x0.shape[0], inputs.num_candidates, walls.shape[0], walls.device
+    T, W, dev = x0.shape[0], walls.shape[0], walls.device
     nw = -(-W // 32)
+    mid_rows = W * W if inputs.max_order >= 2 else 0
     every_wall = cull_tables.pack_words(torch.ones(W, dtype=torch.bool, device=dev))
-    prm = torch.arange(C, dtype=torch.int32, device=dev).expand(T, C).contiguous()
-    cnt = torch.full((T,), C, dtype=torch.int32, device=dev)
-    if cull and C:
+    if cull and inputs.cands:
         keep = cull_tables.beam_keep_tables(
-            walls, normals, kind, inputs.groups, [1], {1: img[:, None, :]},
+            walls, normals, kind, inputs.groups, inputs.orders, dict(zip(inputs.orders, imgs)),
             x0, x1, y0, y1, approx=approx, alpha=alpha, tx=tx, patch=patch,
-            refine=REFINE, sigmoid=sigmoid, tol=tol,
-        )[1]
-        prm, cnt = cull_tables.keep_lists(keep)
+            refine=refine_for(inputs.num_candidates), sigmoid=sigmoid, tol=tol,
+        )
+        lists = [cull_tables.keep_lists(keep[o]) for o in inputs.orders]
+    else:
+        lists = [(torch.arange(c.shape[0], dtype=torch.int32, device=dev)
+                  .expand(T, c.shape[0]).contiguous(),
+                  torch.full((T,), c.shape[0], dtype=torch.int32, device=dev))
+                 for _, c in inputs.cands]
     if shadow:
         geo = cull_tables._shadow_geometry(walls, kind, tx, patch, alpha, approx, sigmoid, tol)
         step = max(1, _LAST_SLAB // max(W * W, 1))
@@ -255,16 +302,20 @@ def build_tables(walls, kind, tx, normals, img, inputs: LoopedInputs, bounds,
             for s in range(0, T, step)
         ])
         l0w = cull_tables.pack_words(cull_tables.first_masks(geo, tx))
-        # The un == 0 hazard gate: every wall on the first and last lists.
+        # The un == 0 hazard gate: every wall on the first and last lists
+        # (mid_words applies it itself).
         l0w = torch.where(geo["hz_free"], l0w, every_wall)
         lastw = torch.where(geo["hz_free"], lastw, every_wall)
         losw = cull_tables.pack_words(cull_tables.los_masks(geo, tx, x0, x1, y0, y1))
+        midw = cull_tables.mid_words(geo) if mid_rows else every_wall.expand(0, nw)
     else:
         l0w = every_wall.expand(W, nw)
         lastw = every_wall.expand(T, W, nw)
         losw = every_wall.expand(T, nw)
-    return Tables(prm=prm, cnt=cnt, l0w=l0w.contiguous(), lastw=lastw.contiguous(),
-                  losw=losw.contiguous())
+        midw = every_wall.expand(mid_rows, nw)
+    return Tables(prm=tuple(p for p, _ in lists), cnt=tuple(c for _, c in lists),
+                  l0w=l0w.contiguous(), lastw=lastw.contiguous(), losw=losw.contiguous(),
+                  midw=midw.contiguous())
 
 
 def make_plan(X, Y, txs, walls, kind, scalars, inputs: LoopedInputs, *, approx: bool,
@@ -284,23 +335,54 @@ def make_plan(X, Y, txs, walls, kind, scalars, inputs: LoopedInputs, *, approx: 
         per_tx = []
         for t in range(txs.shape[0]):
             tx = txs[t].detach()
-            normals, aux, img = launch_constants(walls, tx, host[2], inputs)
-            tables = build_tables(walls, kind, tx, normals, img, inputs, bounds, host,
+            normals, aux, imgs = launch_constants(walls, tx, host[2], inputs)
+            tables = build_tables(walls, kind, tx, normals, imgs, inputs, bounds, host,
                                   approx=approx, sigmoid=sigmoid, cull=cull,
                                   shadow=shadow)
-            per_tx.append(TxPlan(tx=tx.contiguous(), aux=aux, img=img, tables=tables))
+            per_tx.append(TxPlan(tx=tx.contiguous(), aux=aux, imgs=imgs, tables=tables))
     return Plan(rows=X.shape[0], cols=X.shape[1], tile=tuple(tile), per_tx=tuple(per_tx))
 
 
 # -- plain versions ---------------------------------------------------------------
 
 
-def _keep_mask(tables: Tables, C: int) -> torch.Tensor:
-    """``keep[T, C]`` bool from the kept-first lists."""
-    T = tables.cnt.shape[0]
-    rank = torch.arange(C, device=tables.cnt.device)[None, :].expand(T, C)
-    keep = torch.zeros(T, C, dtype=torch.bool, device=tables.cnt.device)
-    return keep.scatter(1, tables.prm.long(), rank < tables.cnt[:, None].long())
+def _keep_mask(prm: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """``keep[T, C]`` bool from one group's kept-first lists."""
+    T, C = prm.shape
+    rank = torch.arange(C, device=cnt.device)[None, :].expand(T, C)
+    keep = torch.zeros(T, C, dtype=torch.bool, device=cnt.device)
+    return keep.scatter(1, prm.long(), rank < cnt[:, None].long())
+
+
+@dataclasses.dataclass(frozen=True)
+class _Masks:
+    """One transmitter's tables as masks: ``keep`` per order, ``los[T, W]``,
+    ``last[T, W, W]`` and, per order, the occluders of the segments before
+    the last, ``head[o] bool[C_o, o, W]``."""
+
+    keep: dict
+    los: torch.Tensor
+    last: torch.Tensor
+    head: dict
+
+
+def _plain_masks(plan: Plan, W: int, inputs: LoopedInputs) -> list:
+    """Each transmitter's :class:`_Masks`."""
+    out = []
+    for tp in plan.per_tx:
+        tb = tp.tables
+        l0 = cull_tables.unpack_words(tb.l0w, W)
+        mid = cull_tables.unpack_words(tb.midw, W).reshape(-1, W, W) if tb.midw.numel() else None
+        head = {}
+        for o, cand in inputs.cands:
+            w = cand.long()
+            segs = [l0[w[:, 0]]] + [mid[w[:, s - 1], w[:, s]] for s in range(1, o)]
+            head[o] = torch.stack(segs, dim=1)
+        out.append(_Masks(
+            keep={o: _keep_mask(p, c) for o, p, c in zip(inputs.orders, tb.prm, tb.cnt)},
+            los=cull_tables.unpack_words(tb.losw, W),
+            last=cull_tables.unpack_words(tb.lastw, W), head=head))
+    return out
 
 
 def _plain_chunk(p, flat, walls, kind, phi, scalars, inputs: LoopedInputs, plan: Plan,
@@ -312,47 +394,37 @@ def _plain_chunk(p, flat, walls, kind, phi, scalars, inputs: LoopedInputs, plan:
     spec = inputs.eager
     tile = plan.tile_of(flat)
     rx = p.reshape(-1, 1, 2)
+    n = p.shape[0]
     out = None
-    for tp, (keep, l0, last, los) in zip(plan.per_tx, masks):
+    for tp, m in zip(plan.per_tx, masks):
         tx = tp.tx.reshape(1, 1, 2)
-        acc = torch.zeros(p.shape[0], device=p.device)
+        acc = torch.zeros(n, device=p.device)
         for order, cand in spec.groups:
             if cand.shape[0] == 0:
                 continue
             if order == 0:
-                listed = los[tile][:, None, None, :]
+                listed = m.los[tile][:, None, None, :]
             else:
-                w0 = cand[:, 0]
-                listed = torch.stack(
-                    [l0[w0][None].expand(p.shape[0], -1, -1), last[tile][:, w0]], dim=2
-                )
+                last = m.last[tile][:, cand[:, -1]][:, :, None, :]
+                head = m.head[order][None].expand(n, -1, -1, -1)
+                listed = torch.cat([head, last], dim=2)
             pts_full, _, valid = eager._trace_group(
                 tx, rx, arrays, order, cand, approx=spec.approx, alpha=alpha,
                 function=spec.function, tol=tol, patch=patch, listed=listed,
             )
             c = valid * eager._received_power_batched(pts_full, order, r_coef, height)
-            if order == 1:
-                c = torch.where(keep[tile], c, torch.zeros_like(c))
+            if order >= 1:
+                c = torch.where(m.keep[order][tile], c, torch.zeros_like(c))
             acc = acc + torch.sum(c, dim=-1)
         out = acc if out is None else out + acc
-    return torch.zeros(p.shape[0], device=p.device) if out is None else out
-
-
-def _plain_masks(plan: Plan, W: int, C: int):
-    return [
-        (_keep_mask(tp.tables, C),
-         cull_tables.unpack_words(tp.tables.l0w, W),
-         cull_tables.unpack_words(tp.tables.lastw, W),
-         cull_tables.unpack_words(tp.tables.losw, W))
-        for tp in plan.per_tx
-    ]
+    return torch.zeros(n, device=p.device) if out is None else out
 
 
 def plain_looped_value(px, py, walls, kind, phi, scalars, inputs: LoopedInputs,
                        plan: Plan) -> torch.Tensor:
     """Plain PyTorch version of ``power_map_looped_value``: ``[P]``."""
     pixels = torch.stack([px, py], dim=-1)
-    masks = _plain_masks(plan, walls.shape[0], inputs.num_candidates)
+    masks = _plain_masks(plan, walls.shape[0], inputs)
     flat = torch.arange(px.shape[0], device=px.device)
     step = inputs.eager.chunk(walls.shape[0])
     with torch.no_grad():
@@ -369,7 +441,7 @@ def plain_looped_value_and_grad(px, py, walls, kind, phi, scalars,
     """Plain PyTorch version of ``power_map_looped_vag``: ``([P], [P, 2])``,
     the pixel gradient from autograd."""
     pixels = torch.stack([px, py], dim=-1).detach()
-    masks = _plain_masks(plan, walls.shape[0], inputs.num_candidates)
+    masks = _plain_masks(plan, walls.shape[0], inputs)
     flat = torch.arange(px.shape[0], device=px.device)
     step = inputs.eager.chunk(walls.shape[0])
     walls, phi = walls.detach(), phi.detach()
@@ -396,8 +468,8 @@ _P = ctypes.c_void_p
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    common = [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-              _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _I]
+    common = [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+              _P, _P, _P, _P, _F, _F, _F, _F, _F, _I]
     lib.power_map_looped_value.argtypes = [*common, _P, _P]
     lib.power_map_looped_value.restype = _I
     lib.power_map_looped_vag.argtypes = [*common, _P, _P, _P]
@@ -412,18 +484,18 @@ def load_library() -> ctypes.CDLL:
 
 
 def _check_inputs(px, py, walls, kind, phi, inputs: LoopedInputs, plan: Plan) -> None:
-    cap = kernel_caps_reason(walls.shape[0], max(inputs.groups, default=0))
+    cap = kernel_caps_reason(walls.shape[0], inputs.max_order)
     if cap is not None:
         raise ValueError(cap)
     dev = px.device
     named = [("px", px, torch.float32), ("py", py, torch.float32),
              ("walls", walls, torch.float32), ("kind", kind, torch.int32),
-             ("phi", phi, torch.float32), ("cand", inputs.cand, torch.int32)]
+             ("phi", phi, torch.float32)]
+    named += [(f"cand[order {o}]", c, torch.int32) for o, c in inputs.cands]
     for t, tp in enumerate(plan.per_tx):
-        named += [(f"tx[{t}]", tp.tx, torch.float32), ("aux", tp.aux, torch.float32),
-                  ("img", tp.img, torch.float32)]
-        named += [(f"tables.{f.name}", getattr(tp.tables, f.name), torch.int32)
-                  for f in dataclasses.fields(Tables)]
+        named += [(f"tx[{t}]", tp.tx, torch.float32), ("aux", tp.aux, torch.float32)]
+        named += [(f"imgs[{k}]", im, torch.float32) for k, im in enumerate(tp.imgs)]
+        named += [(f"tables[{k}]", tt, torch.int32) for k, tt in enumerate(tp.tables.tensors)]
     for name, t, dtype in named:
         if t.device != dev:
             msg = f"{name} is on {t.device}, expected {dev}"
@@ -431,7 +503,7 @@ def _check_inputs(px, py, walls, kind, phi, inputs: LoopedInputs, plan: Plan) ->
         if t.dtype != dtype or not t.is_contiguous():
             msg = f"{name} must be contiguous {dtype}, got {t.dtype}"
             raise ValueError(msg)
-    P, W, C = px.numel(), walls.shape[0], inputs.num_candidates
+    P, W = px.numel(), walls.shape[0]
     T, nw = plan.tiles[0] * plan.tiles[1], -(-W // 32)
     if py.numel() != P or P != plan.rows * plan.cols or tuple(walls.shape[1:]) != (2, 2):
         msg = "bad shapes: px/py [rows * cols], walls [W, 2, 2]"
@@ -439,14 +511,33 @@ def _check_inputs(px, py, walls, kind, phi, inputs: LoopedInputs, plan: Plan) ->
     if P >= 2**31:
         msg = f"the kernels take P < 2**31 pixels, got {P}"
         raise ValueError(msg)
+    sizes = [int(c.shape[0]) for _, c in inputs.cands]
     for tp in plan.per_tx:
         tb = tp.tables
-        if (tuple(tb.prm.shape) != (T, C) or tuple(tb.cnt.shape) != (T,)
+        if (len(tb.prm) != len(sizes) or len(tp.imgs) != len(sizes)
+                or any(tuple(p.shape) != (T, C) for p, C in zip(tb.prm, sizes))
+                or any(tuple(c.shape) != (T,) for c in tb.cnt)
+                or any(tuple(im.shape) != (C, o, 2) for im, C, o in
+                       zip(tp.imgs, sizes, inputs.orders))
                 or tuple(tb.l0w.shape) != (W, nw) or tuple(tb.lastw.shape) != (T, W, nw)
-                or tuple(tb.losw.shape) != (T, nw) or tuple(tp.img.shape) != (C, 2)
+                or tuple(tb.losw.shape) != (T, nw)
+                or tuple(tb.midw.shape) != (W * W if inputs.max_order >= 2 else 0, nw)
                 or tuple(tp.aux.shape) != (W, 6)):
-            msg = f"tables do not fit {T} tiles, {C} candidates and {W} walls"
+            msg = f"tables do not fit {T} tiles, candidate groups {sizes} and {W} walls"
             raise ValueError(msg)
+
+
+def _groups_args(inputs: LoopedInputs, tp: TxPlan):
+    """The candidate groups as the C functions take them: per order 1 to
+    MAX_ORDER the pointers to its candidates, images, kept lists and counts
+    (0 for an order without candidates), and the counts of candidates."""
+    ptrs = (_P * (4 * MAX_ORDER))()
+    sizes = (_I * MAX_ORDER)()
+    for (o, cand), img, prm, cnt in zip(inputs.cands, tp.imgs, tp.tables.prm, tp.tables.cnt):
+        for k, t in enumerate((cand, img, prm, cnt)):
+            ptrs[k * MAX_ORDER + o - 1] = t.data_ptr()
+        sizes[o - 1] = int(cand.shape[0])
+    return ptrs, sizes
 
 
 def _launch(name, px, py, walls, kind, phi, scalars, inputs, plan, approx, sigmoid,
@@ -461,13 +552,13 @@ def _launch(name, px, py, walls, kind, phi, scalars, inputs, plan, approx, sigmo
         stream = torch.cuda.current_stream(px.device).cuda_stream
         for t, tp in enumerate(plan.per_tx):
             tb = tp.tables
+            ptrs, sizes = _groups_args(inputs, tp)
             args = [
                 _soft_mode(approx, sigmoid), px.data_ptr(), py.data_ptr(), plan.rows,
                 plan.cols, plan.tile[0], plan.tile[1], tp.tx.data_ptr(), walls.data_ptr(),
                 tp.aux.data_ptr(), kind.data_ptr(), phi.data_ptr(), walls.shape[0],
-                int(inputs.has_los), inputs.cand.data_ptr(), tp.img.data_ptr(),
-                inputs.num_candidates, tb.prm.data_ptr(), tb.cnt.data_ptr(),
-                tb.l0w.data_ptr(), tb.lastw.data_ptr(), tb.losw.data_ptr(), *host,
+                int(inputs.has_los), inputs.max_order, ptrs, sizes, tb.l0w.data_ptr(),
+                tb.lastw.data_ptr(), tb.losw.data_ptr(), tb.midw.data_ptr(), *host,
                 int(t > 0), out.data_ptr(),
             ]
             if gout is not None:

@@ -3,8 +3,8 @@
 Counterpart of the entry part of :mod:`differt2d_tpu.tracer`:
 :func:`power_map` sends each request to the unrolled CUDA kernels of
 :mod:`differt2d_tpu_torch.ops.power_map_kernel` (``"cuda"``), to the looped
-ones of :mod:`differt2d_tpu_torch.ops.power_map_looped` (``"looped"``,
-candidates of order <= 1), to the order-1 Fermat/MPT solver kernel of
+ones of :mod:`differt2d_tpu_torch.ops.power_map_looped` (``"looped"``), to
+the order-1 Fermat/MPT solver kernel of
 :mod:`differt2d_tpu_torch.ops.opt_solver_kernel` (``"solver"``) or to the
 batched eager tracer of :mod:`differt2d_tpu_torch.eager` (``"torch"``), by
 the rules the JAX package uses to choose its Pallas kernels
@@ -156,8 +156,8 @@ def _kernel_eligible(
     take their defaults); ``groups`` are the request's candidates (derived
     from ``kw`` when not given).  The reason of an eligible request names
     the kernel family the JAX package would pick (``"unrolled"``,
-    ``"looped"`` or ``"solver"``); the unrolled and solver ones are
-    ported, and the looped one for candidates of order <= 1.
+    ``"looped"`` or ``"solver"``); all three are ported (the port's
+    kernels cap the order and the object count: ``kernel_caps_reason``).
     """
     kw = {**_OPTIONS, **kw}
     solver = kw["solver"]
@@ -197,15 +197,9 @@ def _kernel_eligible(
     proxy = stream_proxy(groups, scene.num_objects)
     limit = _UNROLLED_MAX_PROXY_GRAD if grad else _UNROLLED_MAX_PROXY_VALUE
     if proxy > limit:
-        if _max_order(groups) <= power_map_looped.MAX_ORDER:
-            return True, (
-                f"looped kernel: stream proxy {proxy} > {limit}"
-                " (build_power_map_kernel_looped, orders <= 1: power_map_looped)"
-            )
         return True, (
             f"looped kernel: stream proxy {proxy} > {limit}"
-            " (build_power_map_kernel_looped), not yet ported above order 1:"
-            " the next slice, ROADMAP §1 item 8b (B5b with pair_occlusion_dead)"
+            " (build_power_map_kernel_looped: power_map_looped)"
         )
     return True, f"unrolled kernel: stream proxy {proxy} <= {limit}"
 
@@ -217,11 +211,12 @@ def _route(scene, kw: dict, groups: dict, backend: str, *, grad: bool) -> str:
     ``"auto"`` takes the unrolled, looped or solver kernels wherever the
     JAX package takes them, and the eager tracer wherever it takes its XLA
     tracer (among them Fermat/MPT gradient maps, ``many > 1``, orders above
-    1, scenes with vertices and requests without a key).  Where it would
-    take a kernel that is not ported yet (the looped one above order 1), it
-    raises: it never runs such a request somewhere slower without being
-    asked.  ``"cuda"`` means any kernel family, and raises with the reason
-    where none covers the request.
+    1, scenes with vertices and requests without a key).  Where the port's
+    kernel cannot take a request the JAX package sends to its kernel (above
+    a kernel's order or object cap), it raises: it never runs such a
+    request somewhere slower without being asked.  ``"cuda"`` means any
+    kernel family, and raises with the reason where none covers the
+    request.
     """
     ok, reason = _kernel_eligible(scene, kw, grad=grad, groups=groups)
     if kw["solver"] not in ("image", "fermat", "mpt"):
@@ -241,13 +236,10 @@ def _route(scene, kw: dict, groups: dict, backend: str, *, grad: bool) -> str:
         return "torch"
     if reason.startswith("unrolled"):
         route, caps = "cuda", power_map_kernel.kernel_caps_reason
-    elif reason.startswith("looped") and "power_map_looped" in reason:
+    elif reason.startswith("looped"):
         route, caps = "looped", power_map_looped.kernel_caps_reason
-    elif reason.startswith("solver"):
-        route, caps = "solver", opt_solver_kernel.kernel_caps_reason
     else:
-        msg = f"{reason}; pass backend='torch' to run it on the eager tracer"
-        raise NotImplementedError(msg)
+        route, caps = "solver", opt_solver_kernel.kernel_caps_reason
     cap = caps(scene.num_objects, _max_order(groups))
     if cap is not None:
         msg = f"{cap}; pass backend='torch' to run it on the eager tracer"
@@ -309,11 +301,11 @@ def power_map(
 
     ``backend``: ``"auto"`` runs the CUDA kernels for every request they
     cover (the unrolled ones for small candidate streams, the looped,
-    culled ones for city-scale scenes at orders <= 1, the adam solver for
-    keyed order-1 Fermat/MPT value maps) and the eager tracer for requests
-    the JAX package sends to its XLA tracer; it raises for requests the
-    JAX package sends to a kernel not ported yet (looped maps above order
-    1).  ``"cuda"`` forces the kernels (and raises on what they do not
+    culled ones for larger ones such as city-scale scenes, at orders <= 4,
+    the adam solver for keyed order-1 Fermat/MPT value maps) and the eager
+    tracer for requests the JAX package sends to its XLA tracer; it raises
+    for requests the JAX package sends to a kernel that the port's kernels
+    cannot take (above order 4 or 512 objects).  ``"cuda"`` forces the kernels (and raises on what they do not
     cover); ``"torch"`` forces the eager tracer.  On a CPU device the
     kernels' plain PyTorch versions stand in for them.
 

@@ -1,4 +1,4 @@
-"""The pixels where the JAX package's jitted city map resolves near-ties.
+"""The pixels where the JAX package's jitted maps resolve near-ties.
 
 On the 16 x 16 grid of ``linspace(0.05, 0.95)``, six pixels of
 ``city_scene`` next to the transmitter's street crossing carry near-ties of
@@ -6,7 +6,9 @@ the soft max that XLA:CPU's jitted tracer (FMA contraction) resolves
 otherwise than its op-by-op run: the jitted gradient differs there far
 beyond the kink tolerance.  The port's map equals the op-by-op run at
 those pixels, which is why ``test_torch_looped.test_city_maps_match_jax``
-may compare on a 0.03-0.97 grid clear of them.
+may compare on a 0.03-0.97 grid clear of them.  Likewise two pixels of the
+basic scene's order-3 map (``test_torch_order2.py``'s comparison uses a grid
+clear of them).
 """
 
 import jax
@@ -41,3 +43,29 @@ def test_city_scene_near_ties_match_the_op_by_op_jax_run():
     np.testing.assert_allclose(zv.numpy(), np.asarray(rv), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(zg.numpy(), np.asarray(rg), rtol=1e-4, atol=1e-5)
     assert float(zg.abs().min()) > 1.0
+
+
+BASIC_ORDER3_PIXELS = ((0, 0), (4, 13))
+"""``(row, column)`` of the pixels of the basic scene's order-3 map on the
+16 x 9 grid of ``linspace(0.05, 0.95)`` by ``linspace(0.07, 0.93)`` where
+the jitted XLA:CPU map leaves the tolerances (a near-tie of the order-2
+group's soft max); ``test_torch_order2`` uses a grid clear of them."""
+
+
+def test_basic_scene_order3_near_ties_match_the_op_by_op_jax_run():
+    X, Y = np.meshgrid(np.linspace(0.05, 0.95, 16, dtype=np.float32),
+                       np.linspace(0.07, 0.93, 9, dtype=np.float32))
+    rows, cols = (list(i) for i in zip(*BASIC_ORDER3_PIXELS))
+    px, py = X[rows, cols][None], Y[rows, cols][None]
+    kw = dict(max_order=3, approx=True)
+    with jax.debug_nans(False), jax.disable_jit():
+        rv, rg = jtracer.power_map(JScene.basic_scene(), jnp.asarray(px), jnp.asarray(py),
+                                   backend="xla", value_and_grad=True, **kw)
+    zv, zg = power_map(Scene.basic_scene(device="cpu"), torch.from_numpy(px),
+                       torch.from_numpy(py), device="cpu", value_and_grad=True, **kw)
+    np.testing.assert_allclose(zv.numpy(), np.asarray(rv), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(zg.numpy(), np.asarray(rg), rtol=1e-4, atol=1e-5)
+    # The jitted map is the one that differs there.
+    jv = jtracer.power_map(JScene.basic_scene(), jnp.asarray(px), jnp.asarray(py),
+                           backend="xla", **kw)
+    assert not np.allclose(np.asarray(jv), zv.numpy(), rtol=1e-4, atol=1e-5)

@@ -84,13 +84,13 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
 from differt2d_tpu_torch.ops import power_map_looped as pml  # noqa: E402
 
 
-def _looped(scene, n, approx, sigmoid, dev, cull=True):
+def _looped(scene, n, approx, sigmoid, dev, cull=True, max_order=1):
     X, Y = torch.meshgrid(
         torch.linspace(0.02, 0.98, n, device=dev),
         torch.linspace(0.015, 0.985, n, device=dev),
         indexing="xy",
     )
-    groups = path_candidate_matrices(scene.num_objects, 0, 1)
+    groups = path_candidate_matrices(scene.num_objects, 0, max_order)
     inputs = pml.looped_inputs(groups, dev, approx=approx, sigmoid=sigmoid)
     txs = torch.stack(list(scene.transmitters.values())).contiguous()
     scal = (100.0, 1e-2, 0.0, 0.5, 0.1)
@@ -126,6 +126,40 @@ def test_looped_kernels_match_plain_and_identity_tables(cuda, name, mode):
     torch.testing.assert_close(gv, rv, rtol=1e-4, atol=1e-5)
     n_bad, allowed = kink_excess(gg, rg, rtol=1e-3, atol=1e-5)
     assert n_bad <= allowed
+
+
+@pytest.mark.parametrize("mode", ["hard", "hard_sigmoid"])
+@pytest.mark.parametrize("name,max_order", [("city_extract", 2), ("city_two_tx", 2),
+                                            ("basic", 3)])
+def test_looped_kernels_at_higher_orders(cuda, name, max_order, mode):
+    """Orders >= 2 (middle segments, pair kills): culled == identity tables
+    bit for bit, and the kernels against their plain versions."""
+    scene = Scene.city_extract_scene(device=cuda)
+    if name == "city_two_tx":
+        scene = scene.update_transmitters(tx2=[0.5, 0.45])
+    elif name == "basic":
+        scene = Scene.basic_scene(device=cuda)
+    approx = mode != "hard"
+    kw = dict(approx=approx, sigmoid=False)
+    args = _looped(scene, 24, approx, False, cuda, max_order=max_order)
+    ident = _looped(scene, 24, approx, False, cuda, cull=False, max_order=max_order)
+    assert args[6].max_order == max_order
+    before = dict(pml.LAUNCHES)
+    got = pml.value(*args, **kw)
+    gv, gg = pml.value_and_grad(*args, **kw)
+    iv = pml.value(*ident, **kw)
+    ivv, ig = pml.value_and_grad(*ident, **kw)
+    torch.cuda.synchronize()
+    n_tx = len(args[-1].per_tx)
+    assert pml.LAUNCHES["power_map_looped_value"] == before["power_map_looped_value"] + 2 * n_tx
+    assert torch.equal(got, iv) and torch.equal(gv, ivv) and torch.equal(gg, ig)
+    ref = pml.plain_looped_value(*args)
+    rv, rg = pml.plain_looped_value_and_grad(*args)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gv, rv, rtol=1e-4, atol=1e-5)
+    n_bad, allowed = kink_excess(gg, rg, rtol=1e-3, atol=1e-5)
+    assert n_bad <= allowed
+    assert float(got.sum()) > 0.0
 
 
 def test_looped_sigmoid_probe_saturates(cuda):

@@ -51,9 +51,9 @@ def test_beam_keep_tables_drop_only_exact_zeros(name):
     groups = path_candidate_matrices(walls.shape[0], 0, 1)
     inputs = pml.looped_inputs(groups, "cpu", approx=True, sigmoid=False)
     tw, ttx = torch.from_numpy(walls), torch.from_numpy(tx)
-    normals, _, img = pml.launch_constants(tw, ttx, 0.0, inputs)
+    normals, _, (img,) = pml.launch_constants(tw, ttx, 0.0, inputs)
     keep = ct.beam_keep_tables(tw, normals, torch.from_numpy(kind), groups, [1],
-                               {1: img[:, None, :]}, *tb, approx=True, alpha=100.0, tx=ttx,
+                               {1: img}, *tb, approx=True, alpha=100.0, tx=ttx,
                                patch=0.0, refine=8, tol=1e-2)[1]
     assert float(keep.float().mean()) < 0.75, "the tables prune nothing"
     plan = pml.Plan(rows=12, cols=12, tile=tile, per_tx=())
@@ -69,7 +69,7 @@ def test_beam_keep_tables_drop_only_exact_zeros(name):
     # Vertex-last protection: with every wall a vertex, nothing is dropped
     # by the beam proof.
     vtx = torch.full_like(torch.from_numpy(kind), 2)
-    keep_v = ct.beam_keep_tables(tw, normals, vtx, groups, [1], {1: img[:, None, :]}, *tb,
+    keep_v = ct.beam_keep_tables(tw, normals, vtx, groups, [1], {1: img}, *tb,
                                  approx=True, alpha=100.0, refine=8)[1]
     assert bool(keep_v.all())
 

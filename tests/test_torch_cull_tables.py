@@ -79,7 +79,7 @@ def test_tables_equal_the_jax_package(name, mode):
     tw, tk, ttx = torch.from_numpy(walls), torch.from_numpy(kind), torch.from_numpy(tx)
     for approx, sig, alpha in MODES[mode:mode + 1]:
         inputs = pml.looped_inputs(groups, "cpu", approx=approx, sigmoid=sig)
-        normals, _, img = pml.launch_constants(tw, ttx, 0.0, inputs)
+        normals, _, (img,) = pml.launch_constants(tw, ttx, 0.0, inputs)
         f32 = jnp.float32
         dead = pk.first_wall_visibility_dead(jw, jk, jtx, f32(0.0), f32(alpha), approx, sig,
                                              f32(1e-2))
@@ -88,11 +88,11 @@ def test_tables_equal_the_jax_package(name, mode):
             np.asarray(dead))
         jkeep = pk.beam_keep_tables(
             jw, jnp.asarray(normals.numpy()), jk, groups, [1],
-            {1: jnp.asarray(img.numpy()[:, None, :])}, *jb, approx=approx, alpha=f32(alpha),
+            {1: jnp.asarray(img.numpy())}, *jb, approx=approx, alpha=f32(alpha),
             tx=jtx, patch=f32(0.0), occlusion=False, refine=8, sigmoid=sig, tol=f32(1e-2),
         )[1]
         tkeep = ct.beam_keep_tables(
-            tw, normals, tk, groups, [1], {1: img[:, None, :]}, *tb, approx=approx,
+            tw, normals, tk, groups, [1], {1: img}, *tb, approx=approx,
             alpha=alpha, tx=ttx, patch=0.0, refine=8, sigmoid=sig, tol=1e-2,
         )[1]
         np.testing.assert_array_equal(tkeep.numpy(), np.asarray(jkeep))
@@ -148,4 +148,4 @@ def test_tables_in_the_kernels_form():
     assert cnt.tolist() == keep.sum(1).tolist()
     for t in range(7):
         assert prm[t, : cnt[t]].tolist() == torch.nonzero(keep[t]).ravel().tolist()
-    assert torch.equal(pml._keep_mask(pml.Tables(prm, cnt, *(None,) * 3), 11), keep)
+    assert torch.equal(pml._keep_mask(prm, cnt), keep)

@@ -135,7 +135,7 @@ def test_plain_tables_equal_identity_tables_bitwise(case):
         outs[on] = (pml.plain_looped_value(*args), *pml.plain_looped_value_and_grad(*args))
         if on:
             tb = plan.per_tx[0].tables
-            kept = float(tb.cnt.sum()) / tb.prm.numel()
+            kept = float(tb.cnt[0].sum()) / tb.prm[0].numel()
             listed = float(pml.cull_tables.unpack_words(tb.lastw, scene.num_objects).float().mean())
             assert kept < 0.6 and listed < 0.6, (kept, listed)
     for a, b in zip(outs[True], outs[False]):
@@ -220,11 +220,16 @@ def test_city_requests_route_to_the_looped_kernels(monkeypatch):
     monkeypatch.setattr(pml, "value", spy)
     z = power_map(city, X, Y, max_order=1, approx=True, device="cpu")
     assert calls and z.shape == (5, 5)
-    # Above order 1 the looped kernel is the next slice's.
-    with pytest.raises(NotImplementedError, match="looped kernel.*next slice.*8b"):
-        power_map(city, X, Y, max_order=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        power_map(Scene.basic_scene(device="cpu"), X, Y, max_order=2, grad=True, device="cpu")
+    # Orders 2 to 4 take the looped kernels too (order 2 of the city extract
+    # on a 2 x 2 grid: one tile, every candidate planned); order 5 is
+    # beyond their cap (shown on the basic scene: the city extract has 45
+    # billion order-5 candidates).
+    calls.clear()
+    X2, Y2 = city.grid(2)
+    z = power_map(city, X2, Y2, max_order=2, approx=True, device="cpu")
+    assert calls and z.shape == (2, 2)
+    with pytest.raises(NotImplementedError, match="orders <= 4, got 5"):
+        power_map(Scene.basic_scene(device="cpu"), X, Y, max_order=5, device="cpu")
 
 
 def test_looped_gates(monkeypatch):
@@ -261,5 +266,6 @@ def test_looped_caps_match_the_cuda_source():
         assert f"#define {name} {value}\n" in src, name
     assert pml.TILE[0] * pml.TILE[1] <= pml.MAX_THREADS
     assert "at most" in pml.kernel_caps_reason(pml.MAX_WALLS + 1, 1)
-    assert "orders <=" in pml.kernel_caps_reason(7, 2)
+    assert "orders <=" in pml.kernel_caps_reason(7, pml.MAX_ORDER + 1)
+    assert pml.kernel_caps_reason(7, pml.MAX_ORDER) is None
     assert pml.kernel_caps_reason(pml.MAX_WALLS, 1) is None

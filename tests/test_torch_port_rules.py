@@ -36,6 +36,7 @@ from differt2d_tpu_torch import tracer as ttracer
 from differt2d_tpu_torch.logic import sigmoid as tsigmoid
 from differt2d_tpu_torch.ops import opt_solver_kernel as osk
 from differt2d_tpu_torch.ops import power_map_kernel as pmk
+from differt2d_tpu_torch.ops import power_map_looped as pml
 from differt2d_tpu_torch.scene import Scene
 
 torch.set_num_threads(1)
@@ -184,10 +185,9 @@ def test_kernel_eligible_matches_jax(row, monkeypatch):
         unrolled = proxy <= (400 if grad else 1200)
         assert reason.startswith("unrolled") == unrolled, reason
         if not unrolled:
-            # Ported up to order 1; above, the reason names the next slice.
-            ported = max(o for o, g in groups.items() if g.shape[0]) <= 1
-            assert ("power_map_looped" in reason) == ported, reason
-            assert ("next slice" in reason) == (not ported), reason
+            # Every looped request names the port's looped kernels; their
+            # order cap is the route's to apply.
+            assert reason.startswith("looped") and "power_map_looped" in reason, reason
 
 
 def test_solver_kernel_requests_are_named():
@@ -207,13 +207,22 @@ def test_solver_kernel_requests_are_named():
     assert not ok
 
 
-def test_dispatch_routes_and_raises():
+def test_dispatch_routes_and_raises(monkeypatch):
     scene = Scene.basic_scene(device="cpu")
     X, Y = scene.grid(6)
-    with pytest.raises(NotImplementedError, match="looped kernel"):
-        power_map(scene, X, Y, max_order=2, grad=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="looped kernel"):
-        power_map(scene, X, Y, max_order=3, device="cpu")
+    # The order-2 gradient map and order-3 maps take the looped kernels (on
+    # the CPU, their plain versions), as they take the JAX package's looped
+    # kernel; order 5 is beyond the kernels' cap.
+    calls = []
+    for name in ("value", "value_and_grad"):
+        real = getattr(pml, name)
+        monkeypatch.setattr(pml, name, lambda *a, _real=real, _n=name, **k:
+                            calls.append(_n) or _real(*a, **k))
+    assert power_map(scene, X, Y, max_order=2, grad=True, device="cpu").shape == (6, 6, 2)
+    assert power_map(scene, X, Y, max_order=3, device="cpu").shape == (6, 6)
+    assert calls == ["value_and_grad", "value"]
+    with pytest.raises(NotImplementedError, match="orders <= 4, got 5"):
+        power_map(scene, X, Y, max_order=5, device="cpu")
     with pytest.raises(ValueError, match="power_fun"):
         power_map(scene, X, Y, power_fun=_power, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="requires a PRNG key"):
