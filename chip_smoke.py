@@ -95,6 +95,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     the tables leave, the kept share of each order's candidate-pixels and
     the listed share of the middle-segment words.
 
+19. the redesigned looped kernels against their sequential twins
+    (``power_map_looped_value_seq``/``_vag_seq``: the same source with the
+    redesign off), ``torch.equal`` on value and gradient, for the 1024 x
+    1024 order-2 and order-1 city maps, the 256 x 256 order-1 map and, at
+    32 x 32, every phase-16 case, a RIS with a vertex and a duplicated wall;
+    and whether the card's sigmoid keeps the bands the redesign relies on.
+    Phases 10 and 18 time each looped kernel against its twin in turns
+    (twin, new, new, twin) and bound it by the work these inputs need
+    (``needed_ops``) beside the count of every listed test.
+
 The profile of one city map and the tile / refine sweeps that chose the
 culling constants are in ``differt2d_tpu_torch/ops/looped_tuning.py``.
 Each group of phases prints its seconds, and each of phases 15-18 its own.
@@ -285,6 +295,7 @@ OPS_GATE = 2         # loss gate margin (alpha tol + 3) - alpha loss
 OPS_TEST = 18        # blocked test: a - c 2, num_a, num_b, den 9, alpha/den 1,
 #                      z_a, z_b 2, four margins 4
 OPS_VALID_POWER = 7  # folded validity 2, r^2 + h^2 and division 3, valid * power 1, sum 1
+OPS_REJECT = 13      # a rejected test: a - c 2, num_a, num_b, den 9, |den| * bounds 2
 # With the pixel gradient:
 OPS_JACOBIAN = 12    # rank-1 bounce Jacobian: f 1, g 4, d - g n 4, scale 3
 OPS_ON_GRAD = 2      # slope times the bounce's rank-1 gradient
@@ -388,6 +399,41 @@ def ops_left(plan, inputs, kinds: tuple, with_grad: bool) -> tuple[int, int, dic
     ops += plan.rows * plan.cols * (n_tx - 1) * (3 if with_grad else 1)
     ops += OPS_PER_WALL * W + OPS_PER_IMAGE * sum(int(c.numel()) for _, c in inputs.cands) * n_tx
     return int(ops), int(tests), kept
+
+
+def needed_ops(ops: int, tests: int, census: dict) -> float:
+    """Operations a looped map needs once the redesign's proofs are
+    counted: ``ops_left``'s count with its ``tests`` blocked tests (each
+    at ``OPS_TEST``) replaced by the share of them whose candidate's
+    on-object and loss gates are live (the others need no blocked test),
+    each at ``OPS_REJECT`` where the rejection proves the miss and at
+    ``OPS_TEST`` elsewhere; the shares are
+    ``looped_tuning.sweep_census``'s, on a uniform sample of this map's
+    tiles."""
+    listed = max(census["listed"], 1)
+    live, live_rej = census["live"], census["live_rejected"]
+    per_test = (OPS_REJECT * live_rej + OPS_TEST * (live - live_rej)) / listed
+    return ops - OPS_TEST * tests + per_test * tests
+
+
+def census_of(a_t, city, X, Y, grad: bool) -> dict:
+    """``looped_tuning.sweep_census`` of a looped request's plan on 32
+    tiles spread evenly over the grid."""
+    from differt2d_tpu_torch.ops.looped_tuning import sweep_census
+
+    plan, inputs = a_t[7], a_t[6]
+    T = plan.tiles[0] * plan.tiles[1]
+    tiles = list(range(0, T, max(1, T // 32)))
+    return sweep_census(city, X, Y, plan, inputs, a_t[5], tiles, grad)
+
+
+def twin_times(new, twin, k: int, reps: int) -> tuple:
+    """``(new ms, twin ms, all four)``: the redesigned kernel and its
+    sequential twin timed in turns (twin, new, new, twin), each the median
+    of ``reps`` runs of ``k`` chained maps; each side the mean of its two
+    turns."""
+    t = [cuda_time_ms(f, k, reps) for f in (twin, new, new, twin)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
 # Operations of the culling-table build (B7, ops/cull_tables.py), counted
@@ -588,6 +634,7 @@ def main() -> int:
         t0 = time.perf_counter()
         rows += phases(dev, peak_fp32)
         print(f"phases {first}-{first + 3}: {time.perf_counter() - t0:.1f} s", flush=True)
+    twin_phase(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -786,12 +833,16 @@ def city_phases(dev, peak_fp32: float) -> list:
         for name, with_grad in (("power_map_looped_value", False),
                                 ("power_map_looped_vag", True)):
             fn = pml.value_and_grad if with_grad else pml.value
+            twin = pml.twin_value_and_grad if with_grad else pml.twin_value
             before = pml.LAUNCHES[name]
-            ms = cuda_time_ms(lambda: fn(*a_t, **kkw), k, reps)
-            per_map = (pml.LAUNCHES[name] - before) / (k * reps + 1)
+            ms, twin_ms, turns = twin_times(lambda: fn(*a_t, **kkw), lambda: twin(*a_t, **kkw),
+                                            k, reps)
+            per_map = (pml.LAUNCHES[name] - before) / (2 * (k * reps + 1))
             ident_ms = cuda_time_ms(lambda: fn(*i_t, **kkw), k, reps)
             ops_all, tests_all, kept_all = ops_left(i_t[-1], a_t[6], city.kinds, with_grad)
-            ops, tests, kept = ops_left(plan, a_t[6], city.kinds, with_grad)
+            ops_listed, tests, kept = ops_left(plan, a_t[6], city.kinds, with_grad)
+            census = census_of(a_t, city, Xt, Yt, with_grad)
+            ops = needed_ops(ops_listed, tests, census)
             kept, kept_all = kept[1], kept_all[1]
             per_px, per_launch = ops_count(a_t[6].groups, city.kinds, 1, with_grad)
             check(ops_all == P * per_px + per_launch,
@@ -802,20 +853,27 @@ def city_phases(dev, peak_fp32: float) -> list:
             t_ops_all = ops_all / peak_fp32 * 1e3
             bound_ms = max(t_bytes, t_ops)
             bound_all = max(out_b / HBM_BYTES_PER_S * 1e3, t_ops_all)
+            listed_ms = max(t_bytes, ops_listed / peak_fp32 * 1e3)
             line = (f"{name} {size}^2: culled {ms:.4f} ms/map ({P / ms * 1e3:.4g} points/s,"
-                    f" {per_map:g} launches/map), identity tables (B3) {ident_ms:.4f} ms/map;"
-                    f" bound (tables' work) {bound_ms:.4f} ms = {bound_ms / ms:.1%} of culled;"
+                    f" {per_map:g} launches/map); sequential twin {twin_ms:.4f} ms/map"
+                    f" (turns twin, new, new, twin: {', '.join(f'{x:.4f}' for x in turns)});"
+                    f" identity tables (B3) {ident_ms:.4f} ms/map;"
+                    f" bound (work these inputs need) {bound_ms:.4f} ms = {bound_ms / ms:.1%} of"
+                    f" culled (gates live for {census['live'] / max(census['listed'], 1):.2%} of"
+                    f" the listed tests, {census['rejected'] / max(census['listed'], 1):.2%}"
+                    f" rejected; {ops / P:.0f} ops/px); bound (every listed test at full cost)"
+                    f" {listed_ms:.4f} ms = {listed_ms / ms:.1%} of culled;"
                     f" bound (unculled) {bound_all:.4f} ms = {bound_all / ident_ms:.1%} of B3,"
                     f" {bound_all / ms:.1%} of culled; kept {kept / kept_all:.1%} of"
                     f" candidate-pixels, {tests / tests_all:.1%} of blocked tests"
-                    f" ({ops / P:.0f} vs {ops_all / P:.0f} ops/px);"
+                    f" ({ops_listed / P:.0f} vs {ops_all / P:.0f} ops/px);"
                     f" plain {plain_ms[size, with_grad]:.1f} ms/map (one call)")
             print(line, flush=True)
             if size == n:
                 rows.append({
                     "name": name, "route": "cuda", "source": LOOPED_SOURCE,
                     "replaces": LOOPED_REPLACES, "launches": launches[name],
-                    "max_abs_err": err[size, with_grad], "ms": ms,
+                    "max_abs_err": err[size, with_grad], "ms": ms, "twin_ms": twin_ms,
                     "plain_ms": plain_ms[size, with_grad], "bound_ms": bound_ms,
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": None,
@@ -1070,10 +1128,14 @@ def order2_phases(dev, peak_fp32: float) -> list:
         for name, with_grad in (("power_map_looped_value", False),
                                 ("power_map_looped_vag", True)):
             fn = pml.value_and_grad if with_grad else pml.value
+            twin = pml.twin_value_and_grad if with_grad else pml.twin_value
             before = pml.LAUNCHES[name]
-            ms = cuda_time_ms(lambda: fn(*a_t, **kkw), reps_k, 5)
-            per_map = (pml.LAUNCHES[name] - before) / (reps_k * 5 + 1)
-            ops, tests, kept = ops_left(pl, a_t[6], city.kinds, with_grad)
+            ms, twin_ms, turns = twin_times(lambda: fn(*a_t, **kkw), lambda: twin(*a_t, **kkw),
+                                            reps_k, 5)
+            per_map = (pml.LAUNCHES[name] - before) / (2 * (reps_k * 5 + 1))
+            ops_listed, tests, kept = ops_left(pl, a_t[6], city.kinds, with_grad)
+            census = census_of(a_t, city, Xt, Yt, with_grad)
+            ops = needed_ops(ops_listed, tests, census)
             per_px, per_launch = ops_count(a_t[6].groups, city.kinds, 1, with_grad)
             ops_all = P * per_px + per_launch
             tests_all = P * sum(cand_ops([int(i) for i in r], city.kinds, False)[1]
@@ -1088,12 +1150,19 @@ def order2_phases(dev, peak_fp32: float) -> list:
             bound_all = max(out_b / HBM_BYTES_PER_S * 1e3, ops_all / peak_fp32 * 1e3)
             shares = ", ".join(f"order {o}: {kept[o] / (P * int(c.shape[0])):.2%}"
                                for o, c in a_t[6].cands)
+            listed_ms = max(t_bytes, ops_listed / peak_fp32 * 1e3)
             line = (f"{name} order 2 {size}^2: culled {ms:.4f} ms/map ({P / ms * 1e3:.4g}"
-                    f" points/s, {per_map:g} launches/map); bound (tables' work) {bound_ms:.4f}"
-                    f" ms = {bound_ms / ms:.1%} of culled; bound (unculled) {bound_all:.4f} ms;"
+                    f" points/s, {per_map:g} launches/map); sequential twin {twin_ms:.4f} ms/map"
+                    f" (turns twin, new, new, twin: {', '.join(f'{x:.4f}' for x in turns)});"
+                    f" bound (work these inputs need) {bound_ms:.4f} ms = {bound_ms / ms:.1%} of"
+                    f" culled (gates live for {census['live'] / max(census['listed'], 1):.2%} of"
+                    f" the listed tests, {census['rejected'] / max(census['listed'], 1):.2%}"
+                    f" rejected; {ops / P:.0f} ops/px); bound (every listed test at full cost)"
+                    f" {listed_ms:.4f} ms = {listed_ms / ms:.1%} of culled;"
+                    f" bound (unculled) {bound_all:.4f} ms;"
                     f" kept candidate-pixels {shares}; blocked tests left {tests / tests_all:.3%}"
-                    f" ({ops / P:.0f} vs {ops_all / P:.0f} ops/px); middle-segment words list"
-                    f" {float(mid):.1%} of the walls")
+                    f" ({ops_listed / P:.0f} vs {ops_all / P:.0f} ops/px); middle-segment words"
+                    f" list {float(mid):.1%} of the walls")
             if size == m and not with_grad:
                 line += f"; identity tables (unculled) {ident_ms:.1f} ms/map"
             if size == n and not with_grad:
@@ -1104,13 +1173,96 @@ def order2_phases(dev, peak_fp32: float) -> list:
                     "name": name, "route": "cuda", "source": LOOPED_SOURCE,
                     "replaces": LOOPED_REPLACES, "path": "order-2 city (B5b)",
                     "launches": launches[name], "max_abs_err": err_g if with_grad else err_v,
-                    "ms": ms, "plain_ms": plain_g_ms if with_grad else plain_v_ms,
+                    "ms": ms, "twin_ms": twin_ms,
+                    "plain_ms": plain_g_ms if with_grad else plain_v_ms,
                     "plain_pixels": int(at[0].numel()), "bound_ms": bound_ms,
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": None,
                 })
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
+
+
+def duplicated_wall_scene(device):
+    """``Scene.basic_scene()`` with its third wall listed twice: two walls
+    give the same blocked-test activation strictly inside (0, 1) wherever a
+    segment passes near that wall, the redesigned sweep's tie case."""
+    import numpy as np
+
+    from differt2d_tpu_torch import Scene
+
+    basic = Scene.basic_scene(device=device)
+    w = basic.walls.cpu().numpy()
+    return Scene.from_arrays(np.concatenate([w, w[2:3]]),
+                             transmitters={"tx": basic.transmitters["tx"].cpu().numpy()},
+                             receivers={"rx": [0.5, 0.5]}, device=device)
+
+
+def twin_equal(a, b) -> bool:
+    """``torch.equal``, with NaN equal to NaN at the same elements."""
+    import torch
+
+    if torch.equal(a, b):
+        return True
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def twin_phase(dev) -> None:
+    """Phase 19: the redesigned looped kernels against their sequential
+    twins (``power_map_looped_value_seq`` / ``_vag_seq``, the same source
+    with the redesign off), bit for bit on value and gradient: the 1024 x
+    1024 order-2 and order-1 city maps, the 256 x 256 order-1 map, and at
+    32 x 32 every phase-16 case, a RIS with a vertex and a duplicated wall
+    (in-range ties)."""
+    import torch
+
+    from differt2d_tpu_torch import Scene
+    from differt2d_tpu_torch.logic import sigmoid
+    from differt2d_tpu_torch.ops import power_map_looped as pml
+
+    t_phase = time.perf_counter()
+    bands = pml.sigmoid_bands(dev)
+    print(f"sigmoid bands on the card (every float32 past -18, -89 and 19): "
+          + ("hold: sigmoid maps run with the rejection and the saturation exit" if bands else
+             "FAIL: sigmoid maps run without the rejection and the saturation exit"),
+          flush=True)
+    n, m, q = ORDER2_SIZES
+    city = Scene.city_extract_scene()
+    with open(os.path.join(ROOT, "differt2d_tpu_torch", "data", "city_extract.geojson")) as f:
+        features = json.load(f)["features"][:6]
+    six = Scene.from_geojson(json.dumps({"type": "FeatureCollection", "features": features}))
+    o2 = dict(max_order=2, approx=True)
+    cases = [
+        ("order-2 city", city, n, o2),
+        ("order-1 city", city, n, dict(max_order=1, approx=True)),
+        ("order-1 city", city, m, dict(max_order=1, approx=True)),
+        ("hard logic", city, q, dict(max_order=2, approx=False)),
+        ("sigmoid alpha=3000", city, q, dict(max_order=2, approx=True, function=sigmoid,
+                                             alpha=3000.0)),
+        ("sigmoid alpha=100", city, q, dict(max_order=2, approx=True, function=sigmoid)),
+        ("city_scene", Scene.city_scene(), q, o2),
+        ("two TX (accumulate)", city.update_transmitters(tx2=[0.5, 0.45]), q, o2),
+        ("random city, 300 walls", random_city(7, 75, dev), q, o2),
+        ("RIS + vertex", city.add_ris([[0.58, 0.35], [0.62, 0.35]]).add_vertex([0.45, 0.62]),
+         q, o2),
+        ("basic scene, order 2", Scene.basic_scene(), q, o2),
+        ("basic scene, order 3", Scene.basic_scene(), q, dict(max_order=3, approx=True)),
+        ("6 buildings, order 3", six, q, dict(max_order=3, approx=True)),
+        ("duplicated wall, order 2", duplicated_wall_scene(dev), q, o2),
+    ]
+    for name, sc, size, kw in cases:
+        X, Y = city_grid(size, dev)
+        a, kk, _, _ = looped_request(sc, X, Y, kw, dev, grad=True)
+        v, tv = pml.value(*a, **kk), pml.twin_value(*a, **kk)
+        (gv, gg), (tgv, tgg) = pml.value_and_grad(*a, **kk), pml.twin_value_and_grad(*a, **kk)
+        same = [twin_equal(v, tv), twin_equal(gv, tgv), twin_equal(gg, tgg)]
+        check(all(same), f"{name} {size}^2: redesigned != sequential twin (value, vag value,"
+                         f" gradient: {same}; {int((v != tv).sum())} /"
+                         f" {int((gg != tgg).sum())} elements differ)")
+        print(f"  {name} {size}^2: redesigned == sequential twin, torch.equal on value, vag value"
+              f" and gradient ({v.numel()} pixels, {a[6].num_candidates} candidates)",
+              flush=True)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # Operations of an order-1 Fermat/MPT solve per pixel and candidate, counted

@@ -225,8 +225,12 @@ struct Chain {
 // Contribution valid * power of one candidate of order O (and, with G, its
 // pixel gradient).  `id` holds the O wall indices and imx/imy the
 // transmitter's mirror images through them; `blockers` says which walls
-// the blocked test of each segment visits (see AllWalls).
-template <bool G, int SOFT, int O, class Blockers>
+// the blocked test of each segment visits (see AllWalls).  With FAST (the
+// looped kernels' redesigned sweep, power_map_looped.cu) the blocked test
+// first goes through blockers.fast_blocked, which returns whether the
+// sequential sweep below must still run; without it (every other caller)
+// the sweep is the one below, unchanged.
+template <bool G, int SOFT, int O, class Blockers, bool FAST = false>
 __device__ __forceinline__ void contrib(const WallRec* __restrict__ sw,
                                         const int* id, const float* imx,
                                         const float* imy, float txx, float txy,
@@ -431,8 +435,26 @@ __device__ __forceinline__ void contrib(const WallRec* __restrict__ sw,
   constexpr bool soft_grad_blk = SOFT != SOFT_NONE && G;
   float blk = soft_grad_blk ? 0.0f : -INFINITY;
   float gbx = 0.0f, gby = 0.0f;
+  bool sweep = true;
+  if constexpr (FAST) {
+    // Whether the on-object and loss gates alone already make the
+    // validity exactly 0, whatever the blocked test gives (the argument
+    // is at ListedWalls::fast_blocked).
+    bool gate_dead = false;
+    if constexpr (fold) {
+      float z_ol = pmin(zon, zmargin<SOFT>(s.tol - loss, s.alpha));
+      float a_ol = SOFT == SOFT_SIGMOID ? sigm(z_ol) : pmin(pmax(z_ol, 0.0f), 6.0f) / 6.0f;
+      gate_dead = !(a_ol > 0.0f);
+    } else if constexpr (SOFT == SOFT_NONE) {
+      gate_dead = !(onb && (loss < s.tol));
+    } else {
+      gate_dead = !(on > 0.0f) || !(soft<SOFT>(s.tol - loss, s.alpha) > 0.0f);
+    }
+    sweep = blockers.template fast_blocked<G, SOFT, O>(sw, ch, id, s, gate_dead, blk, gbx,
+                                                       gby);
+  }
 #pragma unroll
-  for (int seg = 0; seg <= O; ++seg) {
+  for (int seg = 0; seg <= O && sweep; ++seg) {
     int skip0 = seg == 0 ? -1 : id[seg - 1];
     int skip1 = seg == O ? -1 : id[seg];
     float sax = ch.x[seg], say = ch.y[seg];

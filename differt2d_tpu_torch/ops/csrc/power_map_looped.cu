@@ -15,9 +15,10 @@
 // with the per-candidate routine of power_map.cu (power_map_common.cuh),
 // and power_map_looped_vag adds its hand-derived pixel gradient.
 //
-// Design: one thread per pixel, and one block per culling tile, a compact
-// tile_w x tile_h rectangle of the [rows, cols] grid; tile t is block
-// (t % gridDim.x, t / gridDim.x).  The line of sight comes first, then one
+// Design: one thread per pixel; the threads of a block cover one culling
+// tile at a time, a compact tile_w x tile_h rectangle of the [rows, cols]
+// grid (tile t at tile column t % tiles_x, tile row t / tiles_x).  The
+// line of sight comes first, then one
 // candidate group per order (1, 2, ...), as the TPU kernel visits them.
 // The tables are data, read per tile:
 //
@@ -68,16 +69,34 @@
 // blocked tests of ~18 operations per pixel (0.67 M operations per pixel at
 // order <= 1 and 136 walls, 135 M at order 2), and the tables leave the
 // kept candidates times their listed occluders, summed over tiles
-// (chip_smoke.py counts both).  The tables are the design's answer to the
-// bound; within what they leave this first version does nothing beyond
-// keeping every intermediate in registers.
+// (chip_smoke.py counts both).  The tables are the design's first answer to
+// the bound.  Within what they leave, the redesigned sweep (FAST, the
+// exported power_map_looped_value / _vag) does less per test and skips
+// what the data proves invisible, every bit kept:
+//   - wall records for the test as one 16-byte shared vector, vertices and
+//     the segment's own walls masked out of the bit words;
+//   - a division-free rejection of clear misses (rejected);
+//   - a warp skips a candidate's sweep when every lane's on-object or loss
+//     gate is dead, and leaves a margin-form sweep once every lane's path
+//     is fully blocked (__all_sync);
+//   - the gradient sweep keeps the maximum hit and its first test, and
+//     forms that one wall's partials after the sweep (a tie inside (0, 1)
+//     or a NaN reruns the sequential sweep for the candidate);
+//   - a persistent grid takes the tiles longest first.
+// The proofs are at fast_blocked and rejected.  The sequential sweep
+// (FAST = false, exported as power_map_looped_value_seq / _vag_seq) is the
+// program as it was before: every listed wall's full test, one block per
+// tile in grid order; checks hold the two equal bit for bit.
 //
 // Numerics: those of power_map.cu (-fmad=false, expf, NaN-propagating
-// min/max, explicit [0, 1] clamps).  sigmoid_probe evaluates the kernels'
-// own sigmoid for the wrapper's check of its f32 saturation bands.
+// min/max, explicit [0, 1] clamps).  sigmoid_band_probe checks the kernels'
+// own sigmoid over whole float32 bands for the wrapper (sigmoid culling, the
+// rejection floors, the saturation exit).
 // Caps: W <= LP_MAX_WALLS, order <= LP_MAX_ORDER, tile_w * tile_h <=
 // LP_MAX_THREADS (power_map_looped.py repeats these defines, and a test
 // holds them equal).
+
+#include <string.h>
 
 #include "power_map_common.cuh"
 
@@ -87,29 +106,138 @@
 
 namespace {
 
+constexpr int LP_MAX_WORDS = LP_MAX_WALLS / 32;
+constexpr float kRejectMinDen = 0x1p-90f;  // power_map_looped.REJECT_MIN_DEN
+constexpr int kGateExit = 1;  // `features` bit: the gate exits (power_map_looped.FEATURES)
+
+// -- the redesigned sweep's tests -------------------------------------------------
+//
+// A wall's test record: (pax, pay, pbx - pax, pby - pay), formed once per
+// block from aux, so a test reads one 16-byte shared vector.  The
+// differences are the ones seg_margin and seg_vag form (w.pbx - w.pax), so
+// the numerators and the denominator below are theirs, bit for bit.
+__device__ __forceinline__ void test_terms(const float4 v, float cx, float cy, float dx,
+                                           float dy, float& num_a, float& num_b,
+                                           float& den) {
+  float avx = v.z, avy = v.w;
+  float bvx = cx - dx, bvy = cy - dy;
+  float cvx = v.x - cx, cvy = v.y - cy;
+  num_a = bvy * cvx - bvx * cvy;
+  num_b = avx * cvy - avy * cvx;
+  den = avy * bvx - avx * bvy;
+}
+
+// Division-free rejection of a clear miss.  With s = num, d = den (or both
+// negated where den < 0: the same quotient, rounded the same), the test's
+// parameter is t = fl(s / d).  The host's bounds (power_map_looped.
+// rejection_bounds) are: T_lo, the largest float32 t whose lower margin
+// zmargin(t + 0.005) is at or below the floor, and T_hi, the least whose
+// upper margin zmargin(1.005 - t) is, both computed in float32 as the
+// kernels compute them; tlo = T_lo (1 + 2^-20) rounded down, thi = T_hi
+// (1 + 2^-20) rounded up, |T| >= 2^-20.  With d >= 2^-90, the products
+// d * tlo and d * thi are normal (or overflow to an infinity, which rejects
+// nothing since s is finite), so fl(d * tlo) <= d * tlo (1 - 2^-24) <=
+// d * T_lo: s <= fl(d * tlo) gives s / d <= T_lo exactly, and division
+// rounds monotonically, so t <= T_lo and the lower margin is at or below the
+// floor (the margins are monotone in t, alpha > 0).  Likewise for thi.
+// Finite s_a, s_b and d make every one of the four margins a number (no
+// NaN: finite den means finite wall and segment vectors), so the test's
+// margin, their min, is at or below the floor too.  The floors: hard logic,
+// any miss (t_a < -0.005 or > 1.005 gives -1); hard_sigmoid, 0
+// (clip01_6 and hsig give exactly 0, with slope 0 under relu6's rule);
+// sigmoid, -18 for the value map (1 - clip(sigm(m)) is exactly 1) and -89
+// with the gradient (sigm(m) is exactly 0, and so is its slope), each held
+// on the card for every float32 below it by sigmoid_band_probe.  Such a
+// test leaves the running maximum of the value sweep as it is or below the
+// floor, where the validity does not see it (see fast_blocked), so
+// skipping it changes no bit.  Where the host cannot bound a side, its
+// bound is -inf / inf and it rejects nothing.
+__device__ __forceinline__ bool rejected(float num_a, float num_b, float den, float tlo,
+                                         float thi) {
+  float d = fabsf(den);
+  bool neg = den < 0.0f;
+  float sa = neg ? -num_a : num_a;
+  float sb = neg ? -num_b : num_b;
+  if (!(d >= kRejectMinDen && d < INFINITY && fabsf(sa) < INFINITY && fabsf(sb) < INFINITY))
+    return false;
+  float lo = d * tlo, hi = d * thi;
+  return sa <= lo || sa >= hi || sb <= lo || sb >= hi;
+}
+
+// seg_margin's result from its numerators, in its order of operations.
+template <int SOFT>
+__device__ __forceinline__ float margin_of(float num_a, float num_b, float den,
+                                           float alpha) {
+  if (den == 0.0f) return SOFT != SOFT_NONE ? -INFINITY : -1.0f;  // t = +inf
+  float t_a = num_a / den, t_b = num_b / den;
+  if (SOFT == SOFT_NONE) {
+    bool hit = t_a >= -kTolIntersect && t_a <= kOnePlusTol &&
+               t_b >= -kTolIntersect && t_b <= kOnePlusTol;
+    return hit ? 1.0f : -1.0f;
+  }
+  return pmin(pmin(zmargin<SOFT>(t_a + kTolIntersect, alpha),
+                   zmargin<SOFT>(kOnePlusTol - t_a, alpha)),
+              pmin(zmargin<SOFT>(t_b + kTolIntersect, alpha),
+                   zmargin<SOFT>(kOnePlusTol - t_b, alpha)));
+}
+
+// seg_vag's hit from its numerators, in its order of operations (the same
+// value, bit for bit; no partials).
+template <int SOFT>
+__device__ __forceinline__ float hit_of(float num_a, float num_b, float den, float alpha) {
+  bool dz = den == 0.0f;
+  float safe_den = dz ? 1.0f : den;
+  float t_a = dz ? INFINITY : num_a / safe_den;
+  float t_b = dz ? INFINITY : num_b / safe_den;
+  float inr_a = pmin(soft<SOFT>(t_a + kTolIntersect, alpha),
+                     soft<SOFT>(kOnePlusTol - t_a, alpha));
+  float inr_b = pmin(soft<SOFT>(t_b + kTolIntersect, alpha),
+                     soft<SOFT>(kOnePlusTol - t_b, alpha));
+  return pmin(inr_a, inr_b);
+}
+
+// ch.contract(k, ...) for a k known only at run time, without indexing the
+// chain's arrays dynamically (which would put them in local memory).
+template <int O>
+__device__ __forceinline__ void contract_at(const Chain<O>& ch, int k, float wx, float wy,
+                                            float& ox, float& oy) {
+  ox = 0.0f;
+  oy = 0.0f;
+#pragma unroll
+  for (int j = 0; j < O + 2; ++j)
+    if (j == k) ch.contract(j, wx, wy, ox, oy);
+}
+
 // Blocked-test policy of the looped kernels: the segment's occluder bit
 // words, set bits lowest first.  Order 0 has one segment, the line of
 // sight; order O >= 1 a first (TX -> b1), O - 1 middle (b_s -> b_{s+1})
-// and a last (b_O -> pixel) segment.
+// and a last (b_O -> pixel) segment.  for_each is the sequential sweep
+// (contrib's loop, the _seq twins' whole sweep); fast_blocked is the
+// redesigned one.
 struct ListedWalls {
   const unsigned* __restrict__ los;   // [NW], this tile's
   const unsigned* __restrict__ l0;    // [W, NW]
   const unsigned* __restrict__ last;  // [W, NW], this tile's
   const unsigned* __restrict__ mid;   // [W * W, NW]
   int W, NW;
+  // Redesigned sweep only:
+  const float4* sv;       // [W] test records, shared memory
+  const unsigned* solid;  // [NW] non-vertex walls, shared memory
+  float tlo, thi, sat;    // rejection bounds, saturation margin
+  unsigned vote;          // lanes of this thread's warp
+  int features;           // kGateExit
+
+  template <int O>
+  __device__ __forceinline__ const unsigned* words_of(int seg, const int* id) const {
+    if (O == 0) return los;
+    if (seg == 0) return l0 + id[0] * NW;
+    if (seg == O) return last + id[O > 0 ? O - 1 : 0] * NW;
+    return mid + (static_cast<size_t>(id[seg - 1]) * W + id[seg]) * NW;
+  }
 
   template <int O, class F>
   __device__ __forceinline__ void for_each(int seg, const int* id, F&& f) const {
-    const unsigned* words;
-    if (O == 0) {
-      words = los;
-    } else if (seg == 0) {
-      words = l0 + id[0] * NW;
-    } else if (seg == O) {
-      words = last + id[O > 0 ? O - 1 : 0] * NW;
-    } else {
-      words = mid + (static_cast<size_t>(id[seg - 1]) * W + id[seg]) * NW;
-    }
+    const unsigned* words = words_of<O>(seg, id);
     for (int k = 0; k < NW; ++k) {
       unsigned bits = __ldg(words + k);
       while (bits) {
@@ -117,6 +245,181 @@ struct ListedWalls {
         bits &= bits - 1u;
         f(32 * k + b);
       }
+    }
+  }
+
+  // Word k of a segment's walls to test: listed, not a vertex, not the
+  // segment's own walls (contrib's skips, without the 60-byte record).
+  __device__ __forceinline__ unsigned testable(const unsigned* words, int k, int skip0,
+                                               int skip1) const {
+    unsigned bits = __ldg(words + k) & solid[k];
+    if (skip0 >= 0 && (skip0 >> 5) == k) bits &= ~(1u << (skip0 & 31));
+    if (skip1 >= 0 && (skip1 >> 5) == k) bits &= ~(1u << (skip1 & 31));
+    return bits;
+  }
+
+  // The redesigned blocked test of one candidate.  Returns whether the
+  // sequential sweep must still run (then blk, gbx, gby are untouched);
+  // otherwise blk (and, with the soft gradient, gbx, gby) hold exactly what
+  // the sequential sweep would leave, or values the validity cannot tell
+  // from them.
+  //
+  // Margin form (the value map, and hard logic with or without G): the
+  // sequential sweep keeps blk = pmax over the tests' margins m_k, from
+  // -inf, and the validity reads blk only through act(blk) = clip01_6(blk)
+  // (hard_sigmoid), clip(sigm(blk), 0, 1) (sigmoid) or blk > 0 (hard), as
+  // pmin(a_ol, 1 - act(blk)) or onb && !(blk > 0) && loss < tol.
+  // * Rejected tests (see rejected) have margins at or below the floor F,
+  //   where 1 - act is exactly 1 (hard: blk <= 0 is "not blocked").  If the
+  //   sweep's true maximum is above F it is a survivor's, and the survivors'
+  //   pmax (NaN included: a rejected margin is never NaN) is the same; if it
+  //   is at or below F, both maxima are, and give the same validity.
+  // * Gate exit: where a_ol, the activation of the folded on/loss margin, is
+  //   exactly 0 or NaN (hard: !onb or loss >= tol), pmin(a_ol, 1 - act(blk))
+  //   is 0 or NaN for every blk in [-inf, +inf] or NaN (pmin(0, x) is 0 for
+  //   x >= 0 and NaN for NaN; pmin(NaN, x) is NaN), and nan_to_num makes
+  //   both 0; the validity is 0 whatever the sweep gives.  A warp skips the
+  //   sweep when every lane's is (__all_sync), so no lane waits on another.
+  // * Saturation exit: act is non-decreasing in blk on [sat, +inf] with
+  //   act == 1 there (hard_sigmoid: 6; hard: a hit, 1; sigmoid: 19, held on
+  //   the card for every float32 at or above it), and blk only grows or turns
+  //   NaN; once blk >= sat, 1 - act(final blk) is 0 or NaN, so pmin(a_ol,
+  //   .) is 0 or NaN (a_ol >= 0 or NaN) and the validity is 0, as it is for
+  //   hard logic with blk > 0.  The warp leaves the sweep when every lane's
+  //   blk is there, checked after each word.
+  //
+  // Soft logic with the gradient (winner-only partials): the sequential
+  // sweep keeps (blk, gb) from (0, 0) with blk = pmax(blk, hit_k) and gb =
+  // max_sel(blk, hit_k, gb, gh_k), the hit in activation space (seg_vag).
+  // max_sel resets gb to gh_k at every strict increase, keeps it below, and
+  // averages at a tie, so with A the final maximum, gb depends only on the
+  // first test k* with hit A (or the initial (0, 0) if A == 0) and the
+  // later tests tied at A.  Ties are found on the hits themselves, not the
+  // margins (hsig's / 6 maps distinct margins onto one float).  Hence:
+  // * no NaN hit and no later tie at an A strictly inside (0, 1): gb =
+  //   gh_{k*}, one seg_vag and two contractions, formed as the sweep forms
+  //   them; blk = A;
+  // * A == 0 or A == 1: every tied test's hit has slope 0 (relu6's rule on
+  //   the rounded alpha x + 3; s (1 - s) == 0 for the sigmoid), so its
+  //   partials are exact zeros and gb = 0.  This rests, like the culling
+  //   tables' proofs (ops/cull_tables.py: an unlisted wall has a hit of 0
+  //   with zero partials), on the partials of a saturated test being
+  //   finite;
+  // * a NaN hit, or a tie inside (0, 1) not superseded by a later strict
+  //   increase: the sequential sweep runs (the only exact form of the
+  //   0.5/0.5 tie rule and of NaN's propagation).
+  // Rejected tests have a hit of exactly 0 with zero partials (the floors
+  // above), so they are ties of A == 0 or below A.
+  // * Gate exit: where on or loss_ok is exactly 0 or NaN, the validity
+  //   pmin(pmin(on, 1 - blk), loss_ok) is 0 or NaN (nan_to_num: 0) for every
+  //   blk, and its gradient min_sel(m1, loss_ok, min_sel(on, 1 - blk, g_on,
+  //   -gb), g_lo) is 0 for every (blk, gb) the sweep can leave: the
+  //   selected terms are g_on or g_lo of a saturated activation (zero, as
+  //   above) or gb of a saturated maximum (zero), averaged at ties, and a
+  //   NaN validity zeroes the gradient.  So (blk, gb) = (0, 0), the
+  //   sweep's start, gives the same bits; the warp skips the sweep when
+  //   every lane's gate is dead.
+  // * Saturation exit: once A == 1, later tests can only tie (zero
+  //   partials) or be NaN; with blk NaN or 1 the validity is 0 or NaN and
+  //   its gradient 0 by the same selection, so the warp leaves the sweep
+  //   when every lane's A is 1 (a NaN seen before still sends the lane to
+  //   the sequential sweep).  Off with the margin form's (sat = inf).
+  template <bool G, int SOFT, int O>
+  __device__ __forceinline__ bool fast_blocked(const WallRec* __restrict__ sw,
+                                               const Chain<O>& ch, const int* id,
+                                               const Scalars& s, bool gate_dead, float& blk,
+                                               float& gbx, float& gby) const {
+    bool gate_exit = (features & kGateExit) != 0;  // uniform: the whole warp votes or none
+    if constexpr (SOFT != SOFT_NONE && G) {
+      if (gate_exit && __all_sync(vote, gate_dead)) return false;
+      float A = 0.0f;
+      int wseg = 0, wwall = 0;
+      bool tie = false, nan = false, done = false;
+      bool sat_exit = sat < INFINITY;  // uniform, as gate_exit
+#pragma unroll
+      for (int seg = 0; seg <= O; ++seg) {
+        if (done) break;
+        int skip0 = seg == 0 ? -1 : id[seg - 1];
+        int skip1 = seg == O ? -1 : id[seg];
+        float cx = ch.x[seg], cy = ch.y[seg], dx = ch.x[seg + 1], dy = ch.y[seg + 1];
+        const unsigned* words = words_of<O>(seg, id);
+        for (int k = 0; k < NW; ++k) {
+          unsigned bits = testable(words, k, skip0, skip1);
+          while (bits) {
+            int wi = 32 * k + __ffs(bits) - 1;
+            bits &= bits - 1u;
+            float num_a, num_b, den;
+            test_terms(sv[wi], cx, cy, dx, dy, num_a, num_b, den);
+            if (rejected(num_a, num_b, den, tlo, thi)) continue;
+            float hit = hit_of<SOFT>(num_a, num_b, den, s.alpha);
+            if (hit > A) {
+              A = hit;
+              wseg = seg;
+              wwall = wi;
+              tie = false;
+            } else if (!(hit < A)) {
+              if (hit != hit) {
+                nan = true;
+              } else if (A > 0.0f && A < 1.0f) {
+                tie = true;
+              }
+            }
+          }
+          if (sat_exit && __all_sync(vote, A == 1.0f)) {
+            done = true;
+            break;
+          }
+        }
+      }
+      if (nan || tie) return true;
+      blk = A;
+      if (A > 0.0f && A < 1.0f) {
+        float cx = ch.x[0], cy = ch.y[0], dx = ch.x[1], dy = ch.y[1];
+#pragma unroll
+        for (int seg = 1; seg <= O; ++seg) {
+          if (seg == wseg) {
+            cx = ch.x[seg];
+            cy = ch.y[seg];
+            dx = ch.x[seg + 1];
+            dy = ch.y[seg + 1];
+          }
+        }
+        float dcx, dcy, ddx, ddy;
+        seg_vag<SOFT>(sw[wwall], cx, cy, dx, dy, s.alpha, dcx, dcy, ddx, ddy);
+        float h0x, h0y, h1x, h1y;
+        contract_at<O>(ch, wseg, dcx, dcy, h0x, h0y);
+        contract_at<O>(ch, wseg + 1, ddx, ddy, h1x, h1y);
+        gbx = h0x + h1x;
+        gby = h0y + h1y;
+      }
+      return false;
+    } else {
+      if (gate_exit && __all_sync(vote, gate_dead)) return false;
+      bool done = false;
+#pragma unroll
+      for (int seg = 0; seg <= O; ++seg) {
+        if (done) break;
+        int skip0 = seg == 0 ? -1 : id[seg - 1];
+        int skip1 = seg == O ? -1 : id[seg];
+        float cx = ch.x[seg], cy = ch.y[seg], dx = ch.x[seg + 1], dy = ch.y[seg + 1];
+        const unsigned* words = words_of<O>(seg, id);
+        for (int k = 0; k < NW; ++k) {
+          unsigned bits = testable(words, k, skip0, skip1);
+          while (bits) {
+            int wi = 32 * k + __ffs(bits) - 1;
+            bits &= bits - 1u;
+            float num_a, num_b, den;
+            test_terms(sv[wi], cx, cy, dx, dy, num_a, num_b, den);
+            if (!rejected(num_a, num_b, den, tlo, thi))
+              blk = pmax(blk, margin_of<SOFT>(num_a, num_b, den, s.alpha));
+          }
+          if (__all_sync(vote, blk >= sat)) {
+            done = true;
+            break;
+          }
+        }
+      }
+      return false;
     }
   }
 };
@@ -134,7 +437,7 @@ struct Groups {
 };
 
 // Adds the kept candidates of order O of this tile to (v, gx, gy).
-template <bool G, int SOFT, int O>
+template <bool G, int SOFT, int O, bool FAST>
 __device__ __forceinline__ void order_group(const WallRec* __restrict__ sw,
                                             const Groups& g, int tile,
                                             const ListedWalls& lists, float txx,
@@ -158,7 +461,8 @@ __device__ __forceinline__ void order_group(const WallRec* __restrict__ sw,
       imy[j] = __ldg(img + 2 * (O * c + j) + 1);
     }
     float cv, cgx, cgy;
-    contrib<G, SOFT, O>(sw, id, imx, imy, txx, txy, x, y, s, lists, cv, cgx, cgy);
+    contrib<G, SOFT, O, ListedWalls, FAST>(sw, id, imx, imy, txx, txy, x, y, s, lists, cv,
+                                           cgx, cgy);
     v = v + cv;
     if (G) {
       gx = gx + cgx;
@@ -167,7 +471,50 @@ __device__ __forceinline__ void order_group(const WallRec* __restrict__ sw,
   }
 }
 
-template <bool G, int SOFT, int MAXO>
+// The map (and gradient) of one pixel of one tile: the line of sight,
+// then the order groups in order.
+template <bool G, int SOFT, int MAXO, bool FAST>
+__device__ __forceinline__ void pixel_map(const WallRec* __restrict__ sw, int has_los,
+                                          const Groups& groups, int tile,
+                                          const ListedWalls& lists, float txx, float txy,
+                                          float x, float y, const Scalars& s, float& v,
+                                          float& gx, float& gy) {
+  v = 0.0f;
+  gx = 0.0f;
+  gy = 0.0f;
+  if (has_los) {
+    int none[1] = {-1};
+    float noimg[1] = {0.0f};
+    float cv, cgx, cgy;
+    contrib<G, SOFT, 0, ListedWalls, FAST>(sw, none, noimg, noimg, txx, txy, x, y, s, lists,
+                                           cv, cgx, cgy);
+    v = v + cv;
+    if (G) {
+      gx = gx + cgx;
+      gy = gy + cgy;
+    }
+  }
+  order_group<G, SOFT, 1, FAST>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
+  if constexpr (MAXO >= 2)
+    order_group<G, SOFT, 2, FAST>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
+  if constexpr (MAXO >= 3)
+    order_group<G, SOFT, 3, FAST>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
+  if constexpr (MAXO >= 4)
+    order_group<G, SOFT, 4, FAST>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
+}
+
+// FAST = false is the sequential sweep (the _seq twins): one block per tile
+// in grid order, every listed wall's full test.  FAST = true is the
+// redesigned program: the same per-candidate routine with fast_blocked in
+// front of the sweep, and a persistent grid (a few blocks per SM, sized by
+// the occupancy of this instantiation) whose blocks take tiles from `order`
+// (the tiles by descending blocked-test count, built with the tables)
+// through an atomic counter, so the longest tiles start first and the last
+// wave is made of the shortest.  A pixel is still computed by one thread,
+// so the order moves no bit; the threads of a ragged edge tile's missing
+// pixels compute a copy of an edge pixel and write nothing, so every warp
+// is whole at its votes.
+template <bool G, int SOFT, int MAXO, bool FAST>
 __global__ void __launch_bounds__(LP_MAX_THREADS)
     looped_kernel(const float* __restrict__ px, const float* __restrict__ py,
                   int rows, int cols, const float* __restrict__ tx,
@@ -177,11 +524,17 @@ __global__ void __launch_bounds__(LP_MAX_THREADS)
                   const unsigned* __restrict__ l0w,
                   const unsigned* __restrict__ lastw,
                   const unsigned* __restrict__ losw,
-                  const unsigned* __restrict__ midw, Scalars s, int accumulate,
-                  float* __restrict__ out, float* __restrict__ gout) {
+                  const unsigned* __restrict__ midw, const int* __restrict__ order,
+                  int* __restrict__ counter, float tlo, float thi, float sat, int features,
+                  Scalars s,
+                  int accumulate, float* __restrict__ out, float* __restrict__ gout) {
   __shared__ WallRec sw[LP_MAX_WALLS];
+  __shared__ float4 sv[FAST ? LP_MAX_WALLS : 1];
+  __shared__ unsigned ssolid[FAST ? LP_MAX_WORDS : 1];
+  __shared__ int s_next;
   int nthreads = blockDim.x * blockDim.y;
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < W; i += nthreads) {
+  int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < W; i += nthreads) {
     WallRec r;
     r.ax = walls[4 * i + 0];
     r.ay = walls[4 * i + 1];
@@ -201,63 +554,117 @@ __global__ void __launch_bounds__(LP_MAX_THREADS)
     r.cosp = cosf(phi[i]);
     r.kind = kind[i];
     sw[i] = r;
+    if constexpr (FAST) sv[i] = make_float4(r.pax, r.pay, r.pbx - r.pax, r.pby - r.pay);
   }
-  __syncthreads();
-
-  int col = blockIdx.x * blockDim.x + threadIdx.x;
-  int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (col >= cols || row >= rows) return;
-  int tile = blockIdx.y * gridDim.x + blockIdx.x;
   int NW = (W + 31) / 32;
-  ListedWalls lists{losw + static_cast<size_t>(tile) * NW, l0w,
-                    lastw + static_cast<size_t>(tile) * W * NW, midw, W, NW};
-  int p = row * cols + col;
-  float x = px[p], y = py[p];
-  float txx = __ldg(tx), txy = __ldg(tx + 1);
-  float v = 0.0f, gx = 0.0f, gy = 0.0f;
-  if (has_los) {
-    int none[1] = {-1};
-    float noimg[1] = {0.0f};
-    float cv, cgx, cgy;
-    contrib<G, SOFT, 0>(sw, none, noimg, noimg, txx, txy, x, y, s, lists, cv, cgx, cgy);
-    v = v + cv;
-    if (G) {
-      gx = gx + cgx;
-      gy = gy + cgy;
+  if constexpr (FAST) {
+    for (int k = tid; k < NW; k += nthreads) {
+      unsigned word = 0u;
+      for (int b = 0; b < 32 && 32 * k + b < W; ++b)
+        if (kind[32 * k + b] != KIND_VERTEX) word |= 1u << b;
+      ssolid[k] = word;
     }
   }
-  order_group<G, SOFT, 1>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
-  if constexpr (MAXO >= 2)
-    order_group<G, SOFT, 2>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
-  if constexpr (MAXO >= 3)
-    order_group<G, SOFT, 3>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
-  if constexpr (MAXO >= 4)
-    order_group<G, SOFT, 4>(sw, groups, tile, lists, txx, txy, x, y, s, v, gx, gy);
-  out[p] = accumulate ? out[p] + v : v;
-  if (G) {
-    gout[2 * p] = accumulate ? gout[2 * p] + gx : gx;
-    gout[2 * p + 1] = accumulate ? gout[2 * p + 1] + gy : gy;
+  __syncthreads();
+  float txx = __ldg(tx), txy = __ldg(tx + 1);
+
+  if constexpr (!FAST) {
+    int col = blockIdx.x * blockDim.x + threadIdx.x;
+    int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (col >= cols || row >= rows) return;
+    int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    ListedWalls lists{losw + static_cast<size_t>(tile) * NW, l0w,
+                      lastw + static_cast<size_t>(tile) * W * NW, midw, W, NW};
+    int p = row * cols + col;
+    float v, gx, gy;
+    pixel_map<G, SOFT, MAXO, FAST>(sw, has_los, groups, tile, lists, txx, txy, px[p], py[p],
+                                   s, v, gx, gy);
+    out[p] = accumulate ? out[p] + v : v;
+    if (G) {
+      gout[2 * p] = accumulate ? gout[2 * p] + gx : gx;
+      gout[2 * p + 1] = accumulate ? gout[2 * p + 1] + gy : gy;
+    }
+  } else {
+    int tiles_x = (cols + blockDim.x - 1) / blockDim.x;
+    int T = tiles_x * ((rows + blockDim.y - 1) / blockDim.y);
+    int lanes = nthreads - (tid & ~31);
+    unsigned vote = lanes >= 32 ? 0xffffffffu : (1u << lanes) - 1u;
+    for (;;) {
+      if (tid == 0) s_next = atomicAdd(counter, 1);
+      __syncthreads();
+      int i = s_next;
+      __syncthreads();
+      if (i >= T) break;
+      int tile = __ldg(order + i);
+      int col = (tile % tiles_x) * blockDim.x + threadIdx.x;
+      int row = (tile / tiles_x) * blockDim.y + threadIdx.y;
+      bool inside = col < cols && row < rows;
+      int p = min(row, rows - 1) * cols + min(col, cols - 1);
+      ListedWalls lists{losw + static_cast<size_t>(tile) * NW, l0w,
+                        lastw + static_cast<size_t>(tile) * W * NW, midw, W, NW,
+                        sv, ssolid, tlo, thi, sat, vote, features};
+      float v, gx, gy;
+      pixel_map<G, SOFT, MAXO, FAST>(sw, has_los, groups, tile, lists, txx, txy, px[p],
+                                     py[p], s, v, gx, gy);
+      if (inside) {
+        out[p] = accumulate ? out[p] + v : v;
+        if (G) {
+          gout[2 * p] = accumulate ? gout[2 * p] + gx : gx;
+          gout[2 * p + 1] = accumulate ? gout[2 * p + 1] + gy : gy;
+        }
+      }
+    }
   }
 }
 
-__global__ void sigmoid_kernel(const float* __restrict__ z, float* __restrict__ out,
-                               int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = sigm(z[i]);
+// Counts the float32 values z in the bit range [lo, hi] where the kernels'
+// sigmoid breaks a band the redesigned sweep relies on: test 0, 1 -
+// clip(sigm(z), 0, 1) != 1 (value floor); test 1, sigm(z) != 0 (gradient
+// floor); test 2, 1 - clip(sigm(z), 0, 1) != 0 (saturation).
+__global__ void sigmoid_band_kernel(unsigned lo, unsigned hi, int test,
+                                    unsigned* __restrict__ fails) {
+  unsigned n = hi - lo + 1u;
+  unsigned stride = gridDim.x * blockDim.x;
+  unsigned bad = 0u;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    unsigned bits = lo + i;
+    float z;
+    memcpy(&z, &bits, sizeof z);
+    float sg = sigm(z);
+    float comp = 1.0f - pmin(pmax(sg, 0.0f), 1.0f);
+    bool ok = test == 0 ? comp == 1.0f : (test == 1 ? sg == 0.0f : comp == 0.0f);
+    bad += ok ? 0u : 1u;
+  }
+  if (bad) atomicAdd(fails, bad);
 }
 
-template <bool G, int SOFT>
-void launch_order(int max_order, dim3 grid, dim3 block, cudaStream_t stream,
-                  const float* px, const float* py, int rows, int cols,
-                  const float* tx, const float* walls, const float* aux,
-                  const int* kind, const float* phi, int W, int has_los,
-                  const Groups& g, const unsigned* l0, const unsigned* last,
-                  const unsigned* los, const unsigned* mid, Scalars s,
-                  int accumulate, float* out, float* gout) {
-#define LP_LAUNCH(MAXO)                                                        \
-  looped_kernel<G, SOFT, MAXO><<<grid, block, 0, stream>>>(                    \
-      px, py, rows, cols, tx, walls, aux, kind, phi, W, has_los, g, l0, last, \
-      los, mid, s, accumulate, out, gout)
+template <bool G, int SOFT, bool FAST>
+int launch_order(int max_order, int T, dim3 grid, dim3 block, cudaStream_t stream,
+                 const float* px, const float* py, int rows, int cols, const float* tx,
+                 const float* walls, const float* aux, const int* kind, const float* phi,
+                 int W, int has_los, const Groups& g, const unsigned* l0,
+                 const unsigned* last, const unsigned* los, const unsigned* mid,
+                 const int* order, int* counter, float tlo, float thi, float sat,
+                 int features, Scalars s, int accumulate, float* out, float* gout) {
+#define LP_LAUNCH(MAXO)                                                              \
+  do {                                                                               \
+    auto kern = looped_kernel<G, SOFT, MAXO, FAST>;                                  \
+    dim3 gr = grid;                                                                  \
+    if (FAST) {                                                                      \
+      int dev = 0, sms = 0, per_sm = 0;                                              \
+      cudaGetDevice(&dev);                                                           \
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);             \
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,                   \
+                                                    block.x * block.y, 0);           \
+      if (sms <= 0 || per_sm <= 0) return static_cast<int>(cudaErrorInvalidValue);   \
+      gr = dim3(static_cast<unsigned>(T < sms * per_sm ? T : sms * per_sm));         \
+      cudaMemsetAsync(counter, 0, sizeof(int), stream);                              \
+    }                                                                                \
+    kern<<<gr, block, 0, stream>>>(px, py, rows, cols, tx, walls, aux, kind, phi, W, \
+                                   has_los, g, l0, last, los, mid, order, counter,   \
+                                   tlo, thi, sat, features, s, accumulate, out,      \
+                                   gout);                                            \
+  } while (0)
   switch (max_order) {
     case 0:
     case 1:
@@ -274,20 +681,22 @@ void launch_order(int max_order, dim3 grid, dim3 block, cudaStream_t stream,
       break;
   }
 #undef LP_LAUNCH
+  return 0;
 }
 
-template <bool G>
+template <bool G, bool FAST>
 int launch(int soft_mode, const float* px, const float* py, int rows, int cols,
            int tile_w, int tile_h, const float* tx, const float* walls,
            const float* aux, const int* kind, const float* phi, int W,
            int has_los, int max_order, const void* const* group_ptrs,
            const int* group_sizes, const int* l0w, const int* lastw,
-           const int* losw, const int* midw, Scalars s, int accumulate,
+           const int* losw, const int* midw, const int* order, int* counter,
+           float tlo, float thi, float sat, int features, Scalars s, int accumulate,
            float* out, float* gout, cudaStream_t stream) {
   if (rows <= 0 || cols <= 0 || tile_w <= 0 || tile_h <= 0 ||
       tile_w * tile_h > LP_MAX_THREADS || W < 0 || W > LP_MAX_WALLS ||
       max_order < 0 || max_order > LP_MAX_ORDER || soft_mode < SOFT_NONE ||
-      soft_mode > SOFT_SIGMOID)
+      soft_mode > SOFT_SIGMOID || (FAST && (!order || !counter)))
     return static_cast<int>(cudaErrorInvalidValue);
   Groups g;
   for (int o = 0; o < LP_MAX_ORDER; ++o) {
@@ -302,85 +711,111 @@ int launch(int soft_mode, const float* px, const float* py, int rows, int cols,
   cudaGetLastError();  // clear any earlier error of this runtime
   dim3 grid((cols + tile_w - 1) / tile_w, (rows + tile_h - 1) / tile_h);
   dim3 block(tile_w, tile_h);
+  int T = static_cast<int>(grid.x * grid.y);
   const unsigned* l0 = reinterpret_cast<const unsigned*>(l0w);
   const unsigned* last = reinterpret_cast<const unsigned*>(lastw);
   const unsigned* los = reinterpret_cast<const unsigned*>(losw);
   const unsigned* mid = reinterpret_cast<const unsigned*>(midw);
+  int rc;
   switch (soft_mode) {
     case SOFT_NONE:
-      launch_order<G, SOFT_NONE>(max_order, grid, block, stream, px, py, rows, cols, tx,
-                                 walls, aux, kind, phi, W, has_los, g, l0, last, los,
-                                 mid, s, accumulate, out, gout);
+      rc = launch_order<G, SOFT_NONE, FAST>(max_order, T, grid, block, stream, px, py, rows,
+                                            cols, tx, walls, aux, kind, phi, W, has_los, g,
+                                            l0, last, los, mid, order, counter, tlo, thi,
+                                            sat, features, s, accumulate, out, gout);
       break;
     case SOFT_HARD:
-      launch_order<G, SOFT_HARD>(max_order, grid, block, stream, px, py, rows, cols, tx,
-                                 walls, aux, kind, phi, W, has_los, g, l0, last, los,
-                                 mid, s, accumulate, out, gout);
+      rc = launch_order<G, SOFT_HARD, FAST>(max_order, T, grid, block, stream, px, py, rows,
+                                            cols, tx, walls, aux, kind, phi, W, has_los, g,
+                                            l0, last, los, mid, order, counter, tlo, thi,
+                                            sat, features, s, accumulate, out, gout);
       break;
     default:
-      launch_order<G, SOFT_SIGMOID>(max_order, grid, block, stream, px, py, rows, cols,
-                                    tx, walls, aux, kind, phi, W, has_los, g, l0, last,
-                                    los, mid, s, accumulate, out, gout);
+      rc = launch_order<G, SOFT_SIGMOID, FAST>(max_order, T, grid, block, stream, px, py,
+                                               rows, cols, tx, walls, aux, kind, phi, W,
+                                               has_los, g, l0, last, los, mid, order,
+                                               counter, tlo, thi, sat, features, s,
+                                               accumulate, out, gout);
       break;
   }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The four entry points share one argument list:
+//   (soft_mode, px, py, rows, cols, tile_w, tile_h, tx, walls, aux, kind,
+//    phi, W, has_los, max_order, group_ptrs, group_sizes, l0w, lastw, losw,
+//    midw, order, counter, tlo, thi, sat, features, alpha, tol, patch, r_coef,
+//    height, accumulate, out[, gout], stream).
+// `max_order` is the highest order with candidates; `group_ptrs` (host,
+// 4 x LP_MAX_ORDER pointers) holds per order 1..LP_MAX_ORDER the device
+// pointers to its candidates int32[C, order], mirror images float32[C,
+// order, 2], kept lists int32[T, C] and counts int32[T], and `group_sizes`
+// (host, LP_MAX_ORDER) the candidate counts C, 0 for an order without
+// candidates; `aux` is float32[W, 6], each wall's unit normal and patched
+// endpoints; the occluder words are laid out as the header says (midw is
+// read only at orders >= 2); `order` int32[T] is the tiles' work list and
+// `counter` one int32 of device scratch (zeroed by the launch); tlo, thi
+// and sat are the rejection bounds and the saturation margin
+// (power_map_looped.rejection_bounds), `features` the gate exits' bit
+// (kGateExit; cleared only to measure them).  The _seq twins ignore order,
+// counter, tlo, thi, sat and features.  Each returns cudaGetLastError() after the
+// launch; with `accumulate` the map is added to out (and gout).
+#define LP_ARGS                                                                     \
+  int soft_mode, const float *px, const float *py, int rows, int cols, int tile_w,   \
+      int tile_h, const float *tx, const float *walls, const float *aux,             \
+      const int *kind, const float *phi, int W, int has_los, int max_order,          \
+      const void *const *group_ptrs, const int *group_sizes, const int *l0w,         \
+      const int *lastw, const int *losw, const int *midw, const int *order,          \
+      int *counter, float tlo, float thi, float sat, int features, float alpha,      \
+      float tol,                                                                     \
+      float patch, float r_coef, float height, int accumulate, float *out
+#define LP_PASS                                                                      \
+  soft_mode, px, py, rows, cols, tile_w, tile_h, tx, walls, aux, kind, phi, W,       \
+      has_los, max_order, group_ptrs, group_sizes, l0w, lastw, losw, midw, order,    \
+      counter, tlo, thi, sat, features, Scalars{alpha, tol, patch, r_coef, height},   \
+      accumulate,                                                                    \
+      out
+
 extern "C" {
 
-// Value map of one transmitter: out[rows * cols] (added to out with
-// `accumulate`).  `max_order` is the highest order with candidates;
-// `group_ptrs` (host, 4 x LP_MAX_ORDER pointers) holds per order 1..
-// LP_MAX_ORDER the device pointers to its candidates int32[C, order],
-// mirror images float32[C, order, 2], kept lists int32[T, C] and counts
-// int32[T], and `group_sizes` (host, LP_MAX_ORDER) the candidate counts C,
-// 0 for an order without candidates; `aux` is float32[W, 6], each wall's
-// unit normal and patched endpoints; the occluder words are laid out as the
-// header says (midw is read only at orders >= 2).  Returns
-// cudaGetLastError() after the launch.
-int power_map_looped_value(int soft_mode, const float* px, const float* py,
-                           int rows, int cols, int tile_w, int tile_h,
-                           const float* tx, const float* walls, const float* aux,
-                           const int* kind, const float* phi, int W, int has_los,
-                           int max_order, const void* const* group_ptrs,
-                           const int* group_sizes, const int* l0w,
-                           const int* lastw, const int* losw, const int* midw,
-                           float alpha, float tol, float patch, float r_coef,
-                           float height, int accumulate, float* out, void* stream) {
-  Scalars s{alpha, tol, patch, r_coef, height};
-  return launch<false>(soft_mode, px, py, rows, cols, tile_w, tile_h, tx, walls,
-                       aux, kind, phi, W, has_los, max_order, group_ptrs,
-                       group_sizes, l0w, lastw, losw, midw, s, accumulate, out,
-                       nullptr, static_cast<cudaStream_t>(stream));
+// Value map of one transmitter, redesigned sweep: out[rows * cols].
+int power_map_looped_value(LP_ARGS, void* stream) {
+  return launch<false, true>(LP_PASS, nullptr, static_cast<cudaStream_t>(stream));
 }
 
-// Value and pixel gradient of one transmitter: out[rows * cols],
-// gout[rows * cols, 2].
-int power_map_looped_vag(int soft_mode, const float* px, const float* py,
-                         int rows, int cols, int tile_w, int tile_h,
-                         const float* tx, const float* walls, const float* aux,
-                         const int* kind, const float* phi, int W, int has_los,
-                         int max_order, const void* const* group_ptrs,
-                         const int* group_sizes, const int* l0w, const int* lastw,
-                         const int* losw, const int* midw, float alpha, float tol,
-                         float patch, float r_coef, float height, int accumulate,
-                         float* out, float* gout, void* stream) {
-  Scalars s{alpha, tol, patch, r_coef, height};
-  return launch<true>(soft_mode, px, py, rows, cols, tile_w, tile_h, tx, walls,
-                      aux, kind, phi, W, has_los, max_order, group_ptrs,
-                      group_sizes, l0w, lastw, losw, midw, s, accumulate, out,
-                      gout, static_cast<cudaStream_t>(stream));
+// Value and pixel gradient of one transmitter, redesigned sweep:
+// out[rows * cols], gout[rows * cols, 2].
+int power_map_looped_vag(LP_ARGS, float* gout, void* stream) {
+  return launch<true, true>(LP_PASS, gout, static_cast<cudaStream_t>(stream));
 }
 
-// out[i] = the kernels' sigmoid of z[i] (1 / (1 + expf(-z))).
-int sigmoid_probe(const float* z, float* out, int n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// The same maps through the sequential sweep (every listed wall's full
+// test, one block per tile in grid order): the redesigned kernels' bitwise
+// reference, called by checks only.
+int power_map_looped_value_seq(LP_ARGS, void* stream) {
+  return launch<false, false>(LP_PASS, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+int power_map_looped_vag_seq(LP_ARGS, float* gout, void* stream) {
+  return launch<true, false>(LP_PASS, gout, static_cast<cudaStream_t>(stream));
+}
+
+// Adds to fails[0] the count of float32 values z where the kernels'
+// sigmoid breaks band `test` (see sigmoid_band_kernel): every z <= bound
+// for tests 0 and 1 (bound < 0), every z >= bound for test 2 (bound > 0),
+// infinities included.
+int sigmoid_band_probe(float bound, int test, unsigned* fails, void* stream) {
+  if (test < 0 || test > 2 || !(test == 2 ? bound > 0.0f : bound < 0.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned bits;
+  memcpy(&bits, &bound, sizeof bits);
+  unsigned hi = test == 2 ? 0x7f800000u : 0xff800000u;  // +inf, -inf
   cudaGetLastError();
-  int blocks = (n + 127) / 128;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sigmoid_kernel<<<blocks, 128, 0, st>>>(z, out, n);
+  sigmoid_band_kernel<<<1024, 256, 0, st>>>(bits, hi, test, fails);
   return static_cast<int>(cudaGetLastError());
 }
 

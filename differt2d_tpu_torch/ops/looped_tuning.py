@@ -3,6 +3,7 @@
 Run from the root of a checkout, with one CUDA device:
 
     python -m differt2d_tpu_torch.ops.looped_tuning [--order 2]
+    python -m differt2d_tpu_torch.ops.looped_tuning --census
 
 For the city extract (136 walls, soft logic, hard_sigmoid, alpha 100) on a
 1024 x 1024 grid, at orders <= 1 (the default) or <= 2, it prints:
@@ -14,6 +15,12 @@ For the city extract (136 walls, soft logic, hard_sigmoid, alpha 100) on a
   :data:`SWEEP_ORDER2`: the table build and the culled value kernel per map
   (CUDA events, maps chained, median of 3), and the share of each order's
   candidate-pixels the tables keep.
+
+With ``--census`` it prints instead the redesign's measurements
+(:func:`census_and_twins`): the looped program's ``ptxas`` report, the
+per-tile work histogram and schedule makespans, the share of listed
+blocked tests the rejection skips, and the redesigned kernels against
+their sequential twins (orders <= 1 and <= 2).
 
 These sweeps chose :data:`power_map_looped.TILE` and the refine of
 :func:`power_map_looped.refine_for` (PERF.md, Findings).  Each sweep point
@@ -126,6 +133,201 @@ def main(n: int = 1024, order: int = 1) -> int:
     return 0
 
 
+def makespan(tests: torch.Tensor, slots: int, longest_first: bool) -> float:
+    """Finishing time, in blocked tests, of the tiles' work on ``slots``
+    resident blocks, each tile going to the slot that frees first: in index
+    order (one block per tile in grid order) or longest first."""
+    import heapq
+
+    work = sorted(tests.tolist(), reverse=True) if longest_first else tests.tolist()
+    free = [0.0] * slots
+    for w in work:
+        heapq.heapreplace(free, free[0] + w)
+    return max(free)
+
+
+def sweep_census(city, X, Y, plan, inputs, scal, tiles, grad: bool) -> dict:
+    """What the redesigned sweep does on the tiles ``tiles`` of ``plan``:
+    every kept candidate of each tile, every segment against its listed,
+    non-vertex, non-adjacent walls, the numerators formed as the kernels
+    form them (``seg_margin``) from the plain tracer's bounce points.
+    Returns the counts ``listed`` (tests), ``rejected`` (by
+    :func:`power_map_looped.rejects` against this map's bounds), and the
+    same two over the candidate-pixels whose on-object and loss gates are
+    live (``live``, ``live_rejected``: the only ones whose sweep the kernels
+    run; the plain tracer's gates, so a count, not a bit-exact replay)."""
+    from .. import eager
+    from ..logic import hard_sigmoid
+    from . import cull_tables
+    from . import power_map_looped as pml
+
+    alpha, tol = float(scal[0]), float(scal[1])
+    tlo, thi, _ = pml.rejection_bounds(alpha, 1, grad)
+    W = city.walls.shape[0]
+    tp = plan.per_tx[0]
+    tb = tp.tables
+    solid = city.kind != 2
+    other = ~torch.eye(W, dtype=torch.bool, device=X.device)
+    l0 = cull_tables.unpack_words(tb.l0w, W)
+    last = cull_tables.unpack_words(tb.lastw, W)
+    los = cull_tables.unpack_words(tb.losw, W)
+    mid = cull_tables.unpack_words(tb.midw, W).reshape(W, W, W) if tb.midw.numel() else None
+    pa, pb = tp.aux[:, 2:4], tp.aux[:, 4:6]
+    av = pb - pa
+    out = dict(listed=0, rejected=0, live=0, live_rejected=0)
+    tx = tp.tx.reshape(1, 1, 2)
+    for t in tiles:
+        tw, th = plan.tile
+        r, c = divmod(int(t), plan.tiles[0])
+        xs = X[r * th:(r + 1) * th, c * tw:(c + 1) * tw].reshape(-1)
+        ys = Y[r * th:(r + 1) * th, c * tw:(c + 1) * tw].reshape(-1)
+        rx = torch.stack([xs, ys], dim=-1).reshape(-1, 1, 2)
+        groups = [(0, None, None)] if inputs.has_los else []
+        groups += [(o, cand, (prm, cnt)) for (o, cand), prm, cnt in
+                   zip(inputs.cands, tb.prm, tb.cnt)]
+        for o, cand, lists in groups:
+            if o == 0:
+                pts = torch.cat([tx.expand(rx.shape[0], 1, 2)[:, :, None], rx[:, :, None]],
+                                dim=2)
+                segs = [los[t][None, :] & solid]
+                live = torch.ones(pts.shape[:2], dtype=torch.bool, device=X.device)
+            else:
+                keep = lists[0][t, :int(lists[1][t])].long()
+                if keep.numel() == 0:
+                    continue
+                w = cand[keep].long()
+                cw, ck = city.walls[w], city.kind[w]
+                b = eager._solve_image(tx, rx, cw, ck)
+                P, C = b.shape[:2]
+                pts = torch.cat([tx.expand(P, C, 2)[:, :, None], b,
+                                 rx.expand(P, C, 2)[:, :, None]], dim=2)
+                on = eager._on_objects(b, cw, ck, True, alpha, hard_sigmoid)
+                loss = eager._bounce_residuals(pts, cw, ck, city.phi[w])
+                live = (on > 0) & (hard_sigmoid(tol - loss, alpha) > 0)
+                segs = [l0[w[:, 0]] & other[w[:, 0]]]
+                segs += [mid[w[:, s - 1], w[:, s]] & other[w[:, s - 1]] & other[w[:, s]]
+                         for s in range(1, o)]
+                segs.append(last[t][w[:, -1]] & other[w[:, -1]])
+                segs = [m & solid for m in segs]
+            for s, m in enumerate(segs):
+                cpt, dpt = pts[:, :, s, None, :], pts[:, :, s + 1, None, :]
+                bv = cpt - dpt
+                cv = pa - cpt
+                num_a = bv[..., 1] * cv[..., 0] - bv[..., 0] * cv[..., 1]
+                num_b = av[:, 0] * cv[..., 1] - av[:, 1] * cv[..., 0]
+                den = av[:, 1] * bv[..., 0] - av[:, 0] * bv[..., 1]
+                mask = m[None].expand_as(den)
+                rej = pml.rejects(num_a, num_b, den, tlo, thi) & mask
+                lv = live[..., None]
+                out["rejected"] += int(rej.sum())
+                out["listed"] += int(mask.sum())
+                out["live_rejected"] += int((rej & lv).sum())
+                out["live"] += int((mask & lv).sum())
+    return out
+
+
+def census_and_twins(n: int = 1024, orders=(1, 2)) -> int:
+    """The redesign's measurements on one card: the ``ptxas`` report of the
+    looped program (both sweeps), the per-tile blocked-test histogram with
+    the last-wave makespan of grid order and of longest-first, the share of
+    listed tests the rejection skips, and the redesigned kernels timed
+    against their sequential twins in turns (twin, new, new, twin) with
+    ``torch.equal`` on their outputs, then with each part of the redesign
+    switched off in turn (:data:`power_map_looped.ABLATIONS`) and with all
+    four off."""
+    from .. import Scene
+    from .. import tracer as tr
+    from . import _build
+    from . import power_map_looped as pml
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    path, secs = _build.build(pml.SOURCE)
+    print(f"build {pml.SOURCE}: {secs:.1f} s", flush=True)
+    for line in _build.BUILD_LOG.get(pml.SOURCE, "").splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            print("  ptxas:", line.strip(), flush=True)
+    dev = torch.device("cuda:0")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"sigmoid bands hold on the card: {pml.sigmoid_bands(dev)}", flush=True)
+    city = Scene.city_extract_scene(device=dev)
+    x = torch.linspace(0.01, 0.99, n, device=dev)
+    X, Y = torch.meshgrid(x, x, indexing="xy")
+    px, py = X.reshape(-1).contiguous(), Y.reshape(-1).contiguous()
+    for order in orders:
+        kw = dict(max_order=order, approx=True)
+        o = {**tr._OPTIONS, **kw}
+        inputs = pml.looped_inputs(tr._groups_for(city, o), dev, approx=True, sigmoid=False)
+        txs = torch.stack(list(city.transmitters.values())).contiguous()
+        scal = tuple(o[name] for name in tr._SCALAR_NAMES)
+        plan = pml.make_plan(X, Y, txs, city.walls, city.kind, scal, inputs, approx=True,
+                             sigmoid=False)
+        tests = pml.tile_tests(plan.per_tx[0].tables, inputs, city.kind).double()
+        T = tests.numel()
+        q = torch.quantile(tests, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                                               device=dev)).tolist()
+        print(f"order <= {order}, {n}^2: {T} tiles, blocked tests per tile: mean"
+              f" {float(tests.mean()):.1f}, median {q[0]:.0f}, p90 {q[1]:.0f}, p99 {q[2]:.0f},"
+              f" max {float(tests.max()):.0f} (max/mean {float(tests.max() / tests.mean()):.2f})",
+              flush=True)
+        for per_sm in (2, 4, 6):
+            slots = sms * per_sm
+            ideal = float(tests.sum()) / slots
+            grid_ms = makespan(tests.cpu(), slots, False)
+            lpt_ms = makespan(tests.cpu(), slots, True)
+            print(f"  {slots} resident blocks: makespan grid order {grid_ms / ideal:.3f} x ideal,"
+                  f" longest first {lpt_ms / ideal:.3f} x ideal", flush=True)
+        sample = list(range(0, T, max(1, T // 32)))
+        for grad in (False, True):
+            c = sweep_census(city, X, Y, plan, inputs, scal, sample, grad)
+            print(f"  {'vag' if grad else 'value'} sweep on {len(sample)} tiles: rejected"
+                  f" {c['rejected']} of {c['listed']} listed tests"
+                  f" ({c['rejected'] / max(c['listed'], 1):.2%}); gates live for"
+                  f" {c['live'] / max(c['listed'], 1):.2%} of them, of which"
+                  f" {c['live_rejected'] / max(c['live'], 1):.2%} rejected", flush=True)
+        args = (px, py, city.walls, city.kind, city.phi, scal, inputs, plan)
+        kk = dict(approx=True, sigmoid=False)
+        k = 4 if order <= 1 else 2
+        for name, new, twin in (("value", pml.value, pml.twin_value),
+                                ("vag", pml.value_and_grad, pml.twin_value_and_grad)):
+            a, b = new(*args, **kk), twin(*args, **kk)
+            if isinstance(a, tuple):
+                same = all(torch.equal(u, v) for u, v in zip(a, b))
+            else:
+                same = torch.equal(a, b)
+            times = [cuda_time_ms(lambda f=f: f(*args, **kk), k, 3)
+                     for f in (twin, new, new, twin)]
+            print(f"  {name} order <= {order} {n}^2: torch.equal(new, twin) {same}; ms twin"
+                  f" {times[0]:.4f}, new {times[1]:.4f}, new {times[2]:.4f}, twin {times[3]:.4f}",
+                  flush=True)
+            grad = name == "vag"
+            for off in (*((p,) for p in pml.ABLATIONS), pml.ABLATIONS):
+                def ablated(off=off):
+                    out = torch.zeros_like(px)
+                    gout = torch.zeros(px.numel(), 2, device=dev) if grad else None
+                    pml._launch(f"power_map_looped_{name}", *args, approx=True, sigmoid=False,
+                                out=out, gout=gout, counts={f"power_map_looped_{name}": 0},
+                                ablate=off)
+                    return (out, gout) if grad else out
+
+                got = ablated()
+                same = (all(torch.equal(u, v) for u, v in zip(got, a)) if grad
+                        else torch.equal(got, a))
+                t = [cuda_time_ms(f, k, 3) for f in (lambda: new(*args, **kk), ablated,
+                                                     ablated, lambda: new(*args, **kk))]
+                print(f"    without {'+'.join(off)}: {(t[1] + t[2]) / 2:.4f} ms against"
+                      f" {(t[0] + t[3]) / 2:.4f} ms with it (turns {', '.join(f'{x:.4f}' for x in t)});"
+                      f" equal bits {same}", flush=True)
+        del plan
+        torch.cuda.empty_cache()
+    return 0
+
+
 if __name__ == "__main__":
+    if "--census" in sys.argv:
+        sys.exit(census_and_twins())
     sys.exit(main(order=int(sys.argv[sys.argv.index("--order") + 1]) if "--order" in sys.argv
                   else 1))

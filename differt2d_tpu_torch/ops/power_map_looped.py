@@ -17,6 +17,14 @@ gives every tile every candidate, ``shadow=False`` every segment every
 wall: with both off ("identity tables") the same program is the unculled
 looped kernel, and its maps equal the culled ones bit for bit.
 
+Both run the redesigned blocked sweep (rejection of clear misses without a
+division, the gradient of the winning wall only, warp-wide early exits,
+tiles longest first: ``csrc/power_map_looped.cu``).  The same source
+exports the sequential sweep as ``power_map_looped_value_seq`` and
+``power_map_looped_vag_seq`` (:func:`twin_value`,
+:func:`twin_value_and_grad`): the redesign's bitwise reference, for checks
+only; the dispatch never calls them.
+
 Beside each kernel is its plain PyTorch version (:func:`plain_looped_value`,
 :func:`plain_looped_value_and_grad`: the eager tracer with the same tables
 applied as masks).  A wrapper takes the plain version only for tensors on
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -88,13 +97,158 @@ def refine_for(num_candidates: int) -> int:
 
 LAUNCHES = {"power_map_looped_value": 0, "power_map_looped_vag": 0}
 """Launches of each kernel since the process started (or was reset)."""
+TWIN_LAUNCHES = {"power_map_looped_value_seq": 0, "power_map_looped_vag_seq": 0}
+"""Launches of the sequential-sweep twins (:func:`twin_value`,
+:func:`twin_value_and_grad`), which only checks call."""
 
 _SIGMOID_SATURATES: dict = {}
+_SIGMOID_BANDS: dict = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in TWIN_LAUNCHES:
+        TWIN_LAUNCHES[name] = 0
+
+
+# -- rejection bounds of the redesigned blocked sweep --------------------------------
+
+SIGMOID_VALUE_FLOOR = -18.0
+"""Margin at and below which the kernels' ``1 - clip(sigm(m), 0, 1)`` is
+exactly 1 (``sigm(-18)`` is about 1.5e-8, under half an ulp of 1), held
+for every float32 at or below it by :func:`sigmoid_bands`."""
+SIGMOID_VAG_FLOOR = -89.0
+"""Margin at and below which the kernels' ``sigm(m)`` is exactly 0
+(``expf(89)`` overflows), held the same way: the value and gradient map's
+rejected tests must have a hit of exactly 0."""
+SIGMOID_SAT = 19.0
+"""Margin at and above which ``1 - clip(sigm(m), 0, 1)`` is exactly 0 (the
+value kernel's early exit), held the same way."""
+REJECT_MIN_DEN = 2.0 ** -90
+"""Least ``|den|`` the rejection test takes (keeps its products normal)."""
+_REJECT_SLACK = 2.0 ** -20
+"""Relative widening of the bounds on ``t``: covers the rounding of the
+product ``|den| * bound`` (2**-24) with room."""
+
+
+def _f32_key(x: np.ndarray) -> np.ndarray:
+    """Order-preserving int64 key of float32 values (-0 and +0 share 0)."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.int64)
+    return np.where(b >= 2**31, -(b - 2**31), b)
+
+
+def _f32_of_key(k) -> np.ndarray:
+    k = np.asarray(k, np.int64)
+    b = np.where(k < 0, (-k) + 2**31, k).astype(np.uint32)
+    return b.view(np.float32)
+
+
+def _last_true(pred, lo_key: int, hi_key: int) -> Optional[int]:
+    """Largest key in ``[lo_key, hi_key]`` where the monotone (true, then
+    false) ``pred`` of the float32 holds, or None."""
+    if not pred(_f32_of_key(lo_key)):
+        return None
+    lo, hi = lo_key, hi_key
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if pred(_f32_of_key(mid)):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def rejection_bounds(alpha: float, soft_mode: int, grad: bool, sigmoid_bands_ok: bool = True):
+    """``(tlo, thi, sat)`` of the redesigned kernels, as float32 numbers.
+
+    A blocked test whose parameter ``t = num / den`` (either of the two)
+    is at most ``tlo`` or at least ``thi`` has a margin at or below the
+    floor where its hit is exactly 0 (value: the map's ``1 - act`` is
+    exactly 1), so the kernels skip it without dividing; they decide it from
+    ``num`` and ``|den| * bound`` (:func:`rejects`).  The floors: hard logic,
+    a miss; ``hard_sigmoid``, margin 0; sigmoid, :data:`SIGMOID_VALUE_FLOOR`
+    or, with the gradient, :data:`SIGMOID_VAG_FLOOR` (only where
+    ``sigmoid_bands_ok``).  ``tlo`` is the largest float32 ``t`` whose
+    margin ``alpha * (t + 0.005) [+ 3]`` is at or below the floor,
+    computed in float32 as the kernels compute it, then widened by
+    :data:`_REJECT_SLACK`; ``thi`` likewise from ``alpha * (1.005 - t) [+
+    3]``.  A side that cannot be bounded is ``-inf`` / ``inf`` (no test is
+    rejected on it).  ``sat`` is the running margin at and above which the
+    value kernel's path is fully blocked (hit 1 for hard logic; 6 for
+    ``hard_sigmoid``; :data:`SIGMOID_SAT`), ``inf`` where unproven.
+    """
+    from .power_map_kernel import SOFT_HARD, SOFT_NONE
+
+    inf = float("inf")
+    f32 = np.float32
+    tol, one_tol = f32(0.005), f32(1.005)
+    if soft_mode == SOFT_NONE:
+        tlo = float(np.nextafter(-tol, f32(-inf)))
+        thi = float(np.nextafter(one_tol, f32(inf)))
+        return _widen(tlo, thi) + (1.0,)
+    a = f32(alpha)
+    hard = soft_mode == SOFT_HARD
+    if not (np.isfinite(a) and a > 0) or not (hard or sigmoid_bands_ok):
+        return -inf, inf, inf
+    floor = f32(0.0) if hard else f32(SIGMOID_VAG_FLOOR if grad else SIGMOID_VALUE_FLOOR)
+    three = f32(3.0) if hard else f32(0.0)
+
+    def lo_ok(t):
+        with np.errstate(over="ignore", invalid="ignore"):
+            return bool(f32(f32(a * f32(f32(t) + tol)) + three) <= floor)
+
+    def hi_ok(t):
+        with np.errstate(over="ignore", invalid="ignore"):
+            return bool(f32(f32(a * f32(one_tol - f32(t))) + three) <= floor)
+
+    kmax = int(_f32_key(np.float32(np.finfo(np.float32).max)))
+    klo = _last_true(lo_ok, -kmax, kmax)
+    # hi_ok is false, then true: search the last false, step one up.
+    khi = _last_true(lambda t: not hi_ok(t), -kmax, kmax)
+    tlo = -inf if klo is None else float(_f32_of_key(klo))
+    thi = inf if khi is None or khi == kmax else float(_f32_of_key(khi + 1))
+    sat = 6.0 if hard else SIGMOID_SAT
+    return _widen(tlo, thi) + (sat,)
+
+
+def _widen(tlo: float, thi: float) -> tuple:
+    """The bounds widened by :data:`_REJECT_SLACK`, rounded outwards to
+    float32; a side closer to 0 than 2**-20 (its products could leave the
+    normal range) is dropped."""
+    inf = float("inf")
+    out = []
+    for t, side in ((tlo, -1.0), (thi, 1.0)):
+        if not np.isfinite(t) or t * side < 2.0 ** -20:
+            out.append(side * inf)
+            continue
+        w = t * (1.0 + _REJECT_SLACK)
+        f = np.float32(w)
+        if float(f) * side < w * side:
+            f = np.nextafter(f, np.float32(side * inf))
+        out.append(float(f))
+    return tuple(out)
+
+
+def rejects(num_a, num_b, den, tlo: float, thi: float):
+    """The kernels' rejection test of a blocked test from its float32
+    ``num_a``, ``num_b`` and ``den`` (``seg_margin``'s): true only where
+    ``t_a`` or ``t_b``, divided as the kernels divide, is at most ``tlo``
+    or at least ``thi``.  ``t = s / d`` with ``s = num`` and ``d = den``,
+    or both negated where ``den < 0`` (the same quotient, rounded the
+    same); with ``d >= REJECT_MIN_DEN`` and finite ``s`` and ``d``,
+    ``s <= fl(d * tlo)`` implies ``s <= d * tlo / (1 - 2**-24) <= d *
+    tlo_unwidened`` exactly, hence ``fl(s / d) <= tlo_unwidened`` (division
+    rounds monotonically), and likewise for ``thi``."""
+    neg = den < 0
+    sa = torch.where(neg, -num_a, num_a)
+    sb = torch.where(neg, -num_b, num_b)
+    d = den.abs()
+    inf = float("inf")
+    ok = (d >= REJECT_MIN_DEN) & (d < inf) & (sa.abs() < inf) & (sb.abs() < inf)
+    lo = d * torch.tensor(tlo, dtype=torch.float32, device=den.device)
+    hi = d * torch.tensor(thi, dtype=torch.float32, device=den.device)
+    return ok & ((sa <= lo) | (sa >= hi) | (sb <= lo) | (sb >= hi))
 
 
 def kernel_caps_reason(num_walls: int, max_order: int) -> Optional[str]:
@@ -169,7 +323,9 @@ class Tables:
     per candidate group of :attr:`LoopedInputs.cands`, ``prm[k] int32[T,
     C_o]`` and ``cnt[k] int32[T]``; ``l0w int32[W, NW]``, ``lastw int32[T,
     W, NW]``, ``losw int32[T, NW]`` and, with middle segments (order >= 2),
-    ``midw int32[W * W, NW]`` (else ``[0, NW]``)."""
+    ``midw int32[W * W, NW]`` (else ``[0, NW]``); ``order int32[T]``, the
+    tiles by descending blocked-test count (:func:`tile_order`), the order
+    in which the kernels' persistent blocks take them."""
 
     prm: tuple
     cnt: tuple
@@ -177,10 +333,11 @@ class Tables:
     lastw: torch.Tensor
     losw: torch.Tensor
     midw: torch.Tensor
+    order: torch.Tensor
 
     @property
     def tensors(self) -> tuple:
-        return (*self.prm, *self.cnt, self.l0w, self.lastw, self.losw, self.midw)
+        return (*self.prm, *self.cnt, self.l0w, self.lastw, self.losw, self.midw, self.order)
 
     @property
     def nbytes(self) -> int:
@@ -313,9 +470,60 @@ def build_tables(walls, kind, tx, normals, imgs, inputs: LoopedInputs, bounds,
         lastw = every_wall.expand(T, W, nw)
         losw = every_wall.expand(T, nw)
         midw = every_wall.expand(mid_rows, nw)
-    return Tables(prm=tuple(p for p, _ in lists), cnt=tuple(c for _, c in lists),
-                  l0w=l0w.contiguous(), lastw=lastw.contiguous(), losw=losw.contiguous(),
-                  midw=midw.contiguous())
+    tables = Tables(prm=tuple(p for p, _ in lists), cnt=tuple(c for _, c in lists),
+                    l0w=l0w.contiguous(), lastw=lastw.contiguous(), losw=losw.contiguous(),
+                    midw=midw.contiguous(), order=torch.empty(0, dtype=torch.int32, device=dev))
+    order = tile_order(tile_tests(tables, inputs, kind))
+    return dataclasses.replace(tables, order=order)
+
+
+# Elements of one slab of the per-tile gathers of :func:`tile_tests`.
+_TESTS_SLAB = 1 << 24
+
+
+def tile_tests(tables: Tables, inputs: LoopedInputs, kind: torch.Tensor) -> torch.Tensor:
+    """``int64[T]``: the blocked tests each tile's kept candidates run
+    through the occluder words (listed, non-vertex walls other than the
+    segment's own), the line of sight included; one reduction over the kept
+    lists and the words' popcounts."""
+    W = kind.shape[0]
+    dev = tables.losw.device
+    T = tables.losw.shape[0]
+    solid = (kind.to(dev) != 2)
+    other = ~torch.eye(W, dtype=torch.bool, device=dev)
+    unpack = cull_tables.unpack_words
+    l0c = (unpack(tables.l0w, W) & solid & other).sum(-1)
+    lastc = (unpack(tables.lastw, W) & solid & other).sum(-1)  # [T, W]
+    midc = None
+    if tables.midw.numel():
+        m = unpack(tables.midw, W).reshape(W, W, W) & solid
+        midc = (m & other[:, None, :] & other[None, :, :]).sum(-1)
+    tests = torch.zeros(T, dtype=torch.int64, device=dev)
+    if inputs.has_los:
+        tests += (unpack(tables.losw, W) & solid).sum(-1)
+    for (o, cand), prm, cnt in zip(inputs.cands, tables.prm, tables.cnt):
+        w = cand.long()
+        head = l0c[w[:, 0]]
+        for k in range(1, o):
+            head = head + midc[w[:, k - 1], w[:, k]]
+        width = int(cnt.max()) if T else 0
+        if width == 0:
+            continue
+        rank = torch.arange(width, device=dev)
+        step = max(1, _TESTS_SLAB // width)
+        for t0 in range(0, T, step):
+            ts = slice(t0, t0 + step)
+            p = prm[ts, :width].long()
+            kept = rank[None, :] < cnt[ts, None]
+            per = head[p] + lastc[ts].gather(1, w[p, -1])
+            tests[ts] += torch.where(kept, per, torch.zeros_like(per)).sum(-1)
+    return tests
+
+
+def tile_order(tests: torch.Tensor) -> torch.Tensor:
+    """``int32[T]``: the tiles by descending ``tests``, ties in index order
+    (longest first: the last blocks to start are the shortest)."""
+    return torch.argsort(tests, descending=True, stable=True).to(torch.int32).contiguous()
 
 
 def make_plan(X, Y, txs, walls, kind, scalars, inputs: LoopedInputs, *, approx: bool,
@@ -469,13 +677,15 @@ _P = ctypes.c_void_p
 
 def _declare(lib: ctypes.CDLL) -> None:
     common = [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-              _P, _P, _P, _P, _F, _F, _F, _F, _F, _I]
-    lib.power_map_looped_value.argtypes = [*common, _P, _P]
-    lib.power_map_looped_value.restype = _I
-    lib.power_map_looped_vag.argtypes = [*common, _P, _P, _P]
-    lib.power_map_looped_vag.restype = _I
-    lib.sigmoid_probe.argtypes = [_P, _P, _I, _P]
-    lib.sigmoid_probe.restype = _I
+              _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _F, _F, _F, _F, _F, _I]
+    for name in ("power_map_looped_value", "power_map_looped_value_seq"):
+        getattr(lib, name).argtypes = [*common, _P, _P]
+        getattr(lib, name).restype = _I
+    for name in ("power_map_looped_vag", "power_map_looped_vag_seq"):
+        getattr(lib, name).argtypes = [*common, _P, _P, _P]
+        getattr(lib, name).restype = _I
+    lib.sigmoid_band_probe.argtypes = [_F, _I, _P, _P]
+    lib.sigmoid_band_probe.restype = _I
 
 
 def load_library() -> ctypes.CDLL:
@@ -520,7 +730,7 @@ def _check_inputs(px, py, walls, kind, phi, inputs: LoopedInputs, plan: Plan) ->
                 or any(tuple(im.shape) != (C, o, 2) for im, C, o in
                        zip(tp.imgs, sizes, inputs.orders))
                 or tuple(tb.l0w.shape) != (W, nw) or tuple(tb.lastw.shape) != (T, W, nw)
-                or tuple(tb.losw.shape) != (T, nw)
+                or tuple(tb.losw.shape) != (T, nw) or tuple(tb.order.shape) != (T,)
                 or tuple(tb.midw.shape) != (W * W if inputs.max_order >= 2 else 0, nw)
                 or tuple(tp.aux.shape) != (W, 6)):
             msg = f"tables do not fit {T} tiles, candidate groups {sizes} and {W} walls"
@@ -540,31 +750,63 @@ def _groups_args(inputs: LoopedInputs, tp: TxPlan):
     return ptrs, sizes
 
 
+@functools.lru_cache(maxsize=64)
+def _bounds(alpha: float, soft_mode: int, grad: bool, bands_ok: bool) -> tuple:
+    return rejection_bounds(alpha, soft_mode, grad, bands_ok)
+
+
+GATE_EXIT = 1
+"""The kernels' ``features`` bit for the gate exits (``kGateExit``)."""
+ABLATIONS = ("rejection", "saturation", "gate", "order")
+"""Parts of the redesigned sweep that :func:`_launch` can switch off, for
+measuring each one's share only (``looped_tuning --census``): the
+rejection (bounds at -inf / inf), the saturation exits (``sat`` at inf),
+the gate
+exits (``features`` 0) and the longest-first order (tiles in grid order).
+Each keeps every output bit, as the proofs in the source say."""
+
+
 def _launch(name, px, py, walls, kind, phi, scalars, inputs, plan, approx, sigmoid,
-            out, gout=None):
+            out, gout=None, counts=LAUNCHES, ablate=()):
     _check_inputs(px, py, walls, kind, phi, inputs, plan)
     if px.numel() == 0:
         return
     lib = load_library()
     fn = getattr(lib, name)
     host = [_host_float(v) for v in scalars]
+    mode = _soft_mode(approx, sigmoid)
+    tlo, thi, sat = _bounds(host[0], mode, gout is not None,
+                            bool(not sigmoid or sigmoid_bands(px.device)))
+    inf = float("inf")
+    if "rejection" in ablate:
+        tlo, thi = -inf, inf
+    if "saturation" in ablate:
+        sat = inf
+    features = 0 if "gate" in ablate else GATE_EXIT
+    grid_order = None
+    if "order" in ablate:
+        grid_order = torch.arange(plan.tiles[0] * plan.tiles[1], dtype=torch.int32,
+                                  device=px.device)
+    counter = torch.empty(1, dtype=torch.int32, device=px.device)
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         for t, tp in enumerate(plan.per_tx):
             tb = tp.tables
             ptrs, sizes = _groups_args(inputs, tp)
             args = [
-                _soft_mode(approx, sigmoid), px.data_ptr(), py.data_ptr(), plan.rows,
+                mode, px.data_ptr(), py.data_ptr(), plan.rows,
                 plan.cols, plan.tile[0], plan.tile[1], tp.tx.data_ptr(), walls.data_ptr(),
                 tp.aux.data_ptr(), kind.data_ptr(), phi.data_ptr(), walls.shape[0],
                 int(inputs.has_los), inputs.max_order, ptrs, sizes, tb.l0w.data_ptr(),
-                tb.lastw.data_ptr(), tb.losw.data_ptr(), tb.midw.data_ptr(), *host,
+                tb.lastw.data_ptr(), tb.losw.data_ptr(), tb.midw.data_ptr(),
+                (tb.order if grid_order is None else grid_order).data_ptr(),
+                counter.data_ptr(), tlo, thi, sat, features, *host,
                 int(t > 0), out.data_ptr(),
             ]
             if gout is not None:
                 args.append(gout.data_ptr())
             _check(fn(*args, stream), name)
-            LAUNCHES[name] += 1
+            counts[name] += 1
 
 
 def _device_kind(px, name: str) -> str:
@@ -599,6 +841,33 @@ def value_and_grad(px, py, walls, kind, phi, scalars, inputs: LoopedInputs, plan
     return out, gout
 
 
+def twin_value(px, py, walls, kind, phi, scalars, inputs: LoopedInputs, plan: Plan, *,
+               approx: bool, sigmoid: bool) -> torch.Tensor:
+    """:func:`value` through ``power_map_looped_value_seq``, the sequential
+    sweep that the redesigned kernel must equal bit for bit (CUDA tensors;
+    the plain version on the CPU).  For checks only: the dispatch never
+    calls it."""
+    if _device_kind(px, "power_map_looped_value_seq") == "cpu":
+        return plain_looped_value(px, py, walls, kind, phi, scalars, inputs, plan)
+    out = torch.zeros_like(px)
+    _launch("power_map_looped_value_seq", px, py, walls, kind, phi, scalars, inputs, plan,
+            approx, sigmoid, out, counts=TWIN_LAUNCHES)
+    return out
+
+
+def twin_value_and_grad(px, py, walls, kind, phi, scalars, inputs: LoopedInputs,
+                        plan: Plan, *, approx: bool, sigmoid: bool):
+    """:func:`value_and_grad` through ``power_map_looped_vag_seq`` (see
+    :func:`twin_value`)."""
+    if _device_kind(px, "power_map_looped_vag_seq") == "cpu":
+        return plain_looped_value_and_grad(px, py, walls, kind, phi, scalars, inputs, plan)
+    out = torch.zeros_like(px)
+    gout = torch.zeros(px.numel(), 2, dtype=px.dtype, device=px.device)
+    _launch("power_map_looped_vag_seq", px, py, walls, kind, phi, scalars, inputs, plan,
+            approx, sigmoid, out, gout, counts=TWIN_LAUNCHES)
+    return out, gout
+
+
 class LoopedMapFunction(torch.autograd.Function):
     """Value map: the looped kernel forward, the plain tracer's VJP backward
     (unculled: the tables only drop exact zeros)."""
@@ -620,27 +889,56 @@ def sigmoid_saturates(device) -> bool:
     """Whether the sigmoid that maps on ``device`` run through is exactly 0
     at ``-(Z0 - 1)`` and exactly 1 at ``Z1 - 1`` (``cull_tables._SIGMOID_Z0``
     and ``_SIGMOID_Z1``), as sigmoid culling needs: on a GPU the kernels'
-    own ``1 / (1 + expf(-z))`` (``sigmoid_probe``), on the CPU the plain
-    version's.  Checked once per device."""
+    own ``1 / (1 + expf(-z))``, for every float32 at and past those points
+    (the bands of :func:`sigmoid_bands` at :data:`SIGMOID_VAG_FLOOR` and
+    :data:`SIGMOID_SAT`, which are those points); on the CPU the plain
+    version's at the two points.  Checked once per device."""
     dev = torch.device(device)
     key = str(dev)
     hit = _SIGMOID_SATURATES.get(key)
     if hit is None:
-        z = torch.tensor([-(cull_tables._SIGMOID_Z0 - 1.0), cull_tables._SIGMOID_Z1 - 1.0],
-                         dtype=torch.float32, device=dev)
         if dev.type == "cuda":
-            out = torch.empty_like(z)
-            lib = load_library()
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                _check(lib.sigmoid_probe(z.data_ptr(), out.data_ptr(), 2, stream),
-                       "sigmoid_probe")
+            fails = _sigmoid_band_fails(dev)
+            hit = fails[1] == 0 and fails[2] == 0
         else:
-            out = logic.sigmoid(z, 1.0)
-        lo, hi = out.tolist()
-        hit = lo == 0.0 and hi == 1.0
+            z = torch.tensor([-(cull_tables._SIGMOID_Z0 - 1.0),
+                              cull_tables._SIGMOID_Z1 - 1.0], dtype=torch.float32)
+            lo, hi = logic.sigmoid(z, 1.0).tolist()
+            hit = lo == 0.0 and hi == 1.0
         _SIGMOID_SATURATES[key] = hit
     return hit
+
+
+def _sigmoid_band_fails(dev: torch.device) -> tuple:
+    """Per band of :func:`sigmoid_bands`, the float32 values where the
+    kernels' sigmoid on ``dev`` breaks it (``sigmoid_band_probe``, about
+    3e9 values in all, once per device)."""
+    key = str(dev)
+    fails = _SIGMOID_BANDS.get(key)
+    if fails is None:
+        counts = torch.zeros(3, dtype=torch.int32, device=dev)
+        lib = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for test, bound in enumerate((SIGMOID_VALUE_FLOOR, SIGMOID_VAG_FLOOR, SIGMOID_SAT)):
+                _check(lib.sigmoid_band_probe(bound, test, counts[test:].data_ptr(), stream),
+                       "sigmoid_band_probe")
+        fails = tuple(counts.tolist())
+        _SIGMOID_BANDS[key] = fails
+    return fails
+
+
+def sigmoid_bands(device) -> bool:
+    """Whether the kernels' sigmoid on ``device`` keeps the three bands the
+    redesigned sweep relies on, for every float32 of each band:
+    ``1 - clip(sigm(z), 0, 1) == 1`` for ``z <= SIGMOID_VALUE_FLOOR``,
+    ``sigm(z) == 0`` for ``z <= SIGMOID_VAG_FLOOR`` and ``1 - clip(sigm(z),
+    0, 1) == 0`` for ``z >= SIGMOID_SAT``.  Where they fail, sigmoid maps
+    run without rejection and without the saturation exit
+    (:func:`rejection_bounds`).  The CPU runs the plain version, which
+    rejects nothing: True there."""
+    dev = torch.device(device)
+    return dev.type != "cuda" or not any(_sigmoid_band_fails(dev))
 
 
 def power_map_looped(scene, X, Y, groups: dict, *, want_grad: bool, approx: bool,

@@ -48,7 +48,7 @@ def test_city_scene_near_ties_match_the_op_by_op_jax_run():
 BASIC_ORDER3_PIXELS = ((0, 0), (4, 13))
 """``(row, column)`` of the pixels of the basic scene's order-3 map on the
 16 x 9 grid of ``linspace(0.05, 0.95)`` by ``linspace(0.07, 0.93)`` where
-the jitted XLA:CPU map leaves the tolerances (a near-tie of the order-2
+the jitted XLA:CPU map leaves the tolerances (a near-tie of the order-3
 group's soft max); ``test_torch_order2`` uses a grid clear of them."""
 
 
@@ -57,15 +57,31 @@ def test_basic_scene_order3_near_ties_match_the_op_by_op_jax_run():
                        np.linspace(0.07, 0.93, 9, dtype=np.float32))
     rows, cols = (list(i) for i in zip(*BASIC_ORDER3_PIXELS))
     px, py = X[rows, cols][None], Y[rows, cols][None]
-    kw = dict(max_order=3, approx=True)
+    jx, jy = jnp.asarray(px), jnp.asarray(py)
+    tx, ty = torch.from_numpy(px), torch.from_numpy(py)
+    scene, jscene = Scene.basic_scene(device="cpu"), JScene.basic_scene()
+
+    def port(**kw):
+        return power_map(scene, tx, ty, device="cpu", approx=True, **kw)
+
+    # The near-tie is in the order-3 group: there the op-by-op run is the
+    # reference (the jitted map differs); orders 0-2 agree with the jitted
+    # map, and the whole order-3 map is their sum.
+    top = dict(min_order=3, max_order=3)
     with jax.debug_nans(False), jax.disable_jit():
-        rv, rg = jtracer.power_map(JScene.basic_scene(), jnp.asarray(px), jnp.asarray(py),
-                                   backend="xla", value_and_grad=True, **kw)
-    zv, zg = power_map(Scene.basic_scene(device="cpu"), torch.from_numpy(px),
-                       torch.from_numpy(py), device="cpu", value_and_grad=True, **kw)
+        rv, rg = jtracer.power_map(jscene, jx, jy, backend="xla", value_and_grad=True,
+                                   approx=True, **top)
+    zv, zg = port(value_and_grad=True, **top)
     np.testing.assert_allclose(zv.numpy(), np.asarray(rv), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(zg.numpy(), np.asarray(rg), rtol=1e-4, atol=1e-5)
+    lv, lg = jtracer.power_map(jscene, jx, jy, backend="xla", value_and_grad=True,
+                               approx=True, max_order=2)
+    yv, yg = port(value_and_grad=True, max_order=2)
+    np.testing.assert_allclose(yv.numpy(), np.asarray(lv), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(yg.numpy(), np.asarray(lg), rtol=1e-4, atol=1e-5)
+    fv, fg = port(value_and_grad=True, max_order=3)
+    np.testing.assert_allclose(fv.numpy(), (yv + zv).numpy(), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(fg.numpy(), (yg + zg).numpy(), rtol=1e-6, atol=1e-7)
     # The jitted map is the one that differs there.
-    jv = jtracer.power_map(JScene.basic_scene(), jnp.asarray(px), jnp.asarray(py),
-                           backend="xla", **kw)
+    jv = jtracer.power_map(jscene, jx, jy, backend="xla", approx=True, **top)
     assert not np.allclose(np.asarray(jv), zv.numpy(), rtol=1e-4, atol=1e-5)

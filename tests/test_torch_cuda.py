@@ -9,7 +9,8 @@ machine without them (the repository's conftest imports JAX, hence
 Each kernel is held against its plain PyTorch version on the same CUDA
 inputs: values at rtol 1e-4 / atol 1e-5, gradients under the kink contract
 at rtol 1e-3 / atol 1e-5.  The looped kernels' culled maps must also equal
-their identity-table maps bit for bit.
+their identity-table maps bit for bit, and the redesigned looped kernels
+their sequential twins (``power_map_looped_value_seq`` / ``_vag_seq``).
 """
 
 import pytest
@@ -160,6 +161,92 @@ def test_looped_kernels_at_higher_orders(cuda, name, max_order, mode):
     n_bad, allowed = kink_excess(gg, rg, rtol=1e-3, atol=1e-5)
     assert n_bad <= allowed
     assert float(got.sum()) > 0.0
+
+
+def _random_city(seed, n_buildings, dev):
+    """Rotated rectangular buildings (4 walls each) and a transmitter, from a
+    NumPy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    walls = []
+    for _ in range(n_buildings):
+        cx, cy = rng.uniform(0.05, 0.95, 2)
+        w, h = rng.uniform(0.01, 0.05, 2)
+        c, s = np.cos(rng.uniform(0, np.pi)), np.sin(rng.uniform(0, np.pi))
+        pts = [(cx + c * dx - s * dy, cy + s * dx + c * dy)
+               for dx, dy in ((-w, -h), (w, -h), (w, h), (-w, h))]
+        walls += [[pts[i - 1], pts[i]] for i in range(4)]
+    tx = rng.uniform(0.05, 0.95, 2).astype(np.float32)
+    return Scene.from_arrays(np.asarray(walls, np.float32), transmitters={"tx": tx},
+                             receivers={"rx": [0.5, 0.5]}, device=dev)
+
+
+def _duplicated_wall(dev):
+    """The basic scene with its third wall listed twice: in-range ties."""
+    import numpy as np
+
+    basic = Scene.basic_scene(device=dev)
+    w = basic.walls.cpu().numpy()
+    return Scene.from_arrays(np.concatenate([w, w[2:3]]),
+                             transmitters={"tx": basic.transmitters["tx"].cpu().numpy()},
+                             receivers={"rx": [0.5, 0.5]}, device=dev)
+
+
+def _same(a, b):
+    """torch.equal, NaN equal to NaN at the same elements."""
+    return torch.equal(a, b) or (torch.equal(a.isnan(), b.isnan())
+                                 and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def _check_twins(scene, n, approx, sigmoid, dev, max_order):
+    args = _looped(scene, n, approx, sigmoid, dev, max_order=max_order)
+    kw = dict(approx=approx, sigmoid=sigmoid)
+    before, twins = dict(pml.LAUNCHES), dict(pml.TWIN_LAUNCHES)
+    v, tv = pml.value(*args, **kw), pml.twin_value(*args, **kw)
+    (gv, gg), (tgv, tgg) = pml.value_and_grad(*args, **kw), pml.twin_value_and_grad(*args, **kw)
+    torch.cuda.synchronize()
+    n_tx = len(args[-1].per_tx)
+    assert pml.LAUNCHES["power_map_looped_vag"] == before["power_map_looped_vag"] + n_tx
+    assert (pml.TWIN_LAUNCHES["power_map_looped_vag_seq"]
+            == twins["power_map_looped_vag_seq"] + n_tx)
+    assert _same(v, tv) and _same(gv, tgv) and _same(gg, tgg)
+    assert float(v.nan_to_num().abs().sum()) > 0.0
+
+
+_TWIN_SCENES = [("city_scene", 1), ("city_scene", 2), ("random_city", 1), ("random_city", 2),
+                ("random_city", 3), ("basic", 1), ("basic", 2), ("basic", 3)]
+
+
+@pytest.mark.parametrize("mode", ["hard", "hard_sigmoid", "sigmoid", "ris_vertex"])
+@pytest.mark.parametrize("name,max_order", _TWIN_SCENES)
+def test_redesigned_looped_kernels_equal_their_sequential_twins(cuda, name, max_order, mode):
+    """The redesigned sweep (rejection, winner-only partials, early exits,
+    longest-first tiles) against the sequential one, bit for bit, on a
+    20 x 20 grid (ragged 16 x 16 tiles)."""
+    if name == "city_scene":
+        scene = Scene.city_scene(device=cuda)
+    elif name == "random_city":
+        scene = _random_city(11, 10, cuda)
+    else:
+        scene = Scene.basic_scene(device=cuda)
+    if mode == "ris_vertex":
+        scene = scene.add_ris([[0.58, 0.35], [0.62, 0.35]]).add_vertex([0.45, 0.62])
+    approx, sigmoid = mode != "hard", mode == "sigmoid"
+    _check_twins(scene, 20, approx, sigmoid, cuda, max_order)
+
+
+@pytest.mark.parametrize("mode", ["hard_sigmoid", "sigmoid"])
+def test_redesigned_looped_kernels_on_in_range_ties(cuda, mode):
+    """A duplicated wall gives two listed walls the same activation strictly
+    inside (0, 1): the redesigned vag kernel reruns the sequential sweep
+    there, and stays bit for bit."""
+    _check_twins(_duplicated_wall(cuda), 48, True, mode == "sigmoid", cuda, 2)
+
+
+def test_looped_sigmoid_bands_hold(cuda):
+    pml._SIGMOID_BANDS.pop(str(cuda), None)
+    assert pml.sigmoid_bands(cuda)
 
 
 def test_looped_sigmoid_probe_saturates(cuda):
