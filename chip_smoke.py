@@ -24,7 +24,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    respect to the transmitter, the walls and alpha, against the plain
    version's autograd;
 6. timing with CUDA events (32 maps chained without a host sync, median of
-   5 repeats), each kernel's bound, and the plain version's time;
+   5 repeats), each kernel's bound, and the plain version's time; the
+   redesigned ``power_map_vag`` timed against its sequential twin in turns
+   (twin, new, new, twin), its registers, blocks per SM, the instructions
+   of one blocked test (``sass_census``) and its issue-slot bound; whether
+   the card's sigmoid keeps the bands the rejection rests on;
 7. the city path: ``power_map`` of ``Scene.city_extract_scene()`` (136
    walls, order <= 1, soft logic, alpha 100) on a 1024 x 1024 grid, value
    and value + gradient, through the looped kernels with their culling
@@ -67,8 +71,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     64 x 64 RIS map (100 steps) with respect to the RIS phase against the
     eager solver's;
 14. timing at 1024 x 1024 (CUDA events, 8 maps chained, median of 5): the
-    solver kernel and ``power_map`` end to end for each map of phase 11,
-    with the bound from the operations the solve needs;
+    solver kernel against its sequential twin in turns and ``power_map``
+    end to end for each map of phase 11, with the bound from the operations
+    the solve needs, the registers, blocks per SM, one adam step's
+    instructions and the issue-slot bound of both kernels;
 15. the order-2 city path: ``power_map`` of ``Scene.city_extract_scene()``
     with ``max_order=2`` (18,497 candidates, soft logic, alpha 100) on a
     1024 x 1024 grid, value and value + gradient, through the looped
@@ -101,6 +107,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     1024 order-2 and order-1 city maps, the 256 x 256 order-1 map and, at
     32 x 32, every phase-16 case, a RIS with a vertex and a duplicated wall;
     and whether the card's sigmoid keeps the bands the redesign relies on.
+20. the redesigned ``opt_solver_value`` and ``power_map_vag`` against
+    their sequential twins (``opt_solver_value_seq``,
+    ``power_map_vag_seq``: the same sources with the redesign off),
+    ``torch.equal``: the 1024 x 1024 RIS map and wall solves, the phase-12
+    cases at 256 x 256, a RIS with a vertex and a zero-length wall on a
+    pixel; the 1024 x 1024 basic-scene gradient map, the phase-4 cases at
+    256 x 256, a duplicated wall and walls short enough for blocked tests
+    with |den| below 2^-90.
+
     Phases 10 and 18 time each looped kernel against its twin in turns
     (twin, new, new, twin) and bound it by the work these inputs need
     (``needed_ops``) beside the count of every listed test.
@@ -602,12 +617,24 @@ def main() -> int:
 
     e2e_ms = cuda_time_ms(lambda: power_map(scene, X, Y, **main_kw), k, reps)
     e2e_vag_ms = cuda_time_ms(lambda: power_map(scene, X, Y, value_and_grad=True, **main_kw), k, reps)
+    bands = pmk.sigmoid_bands(dev)
+    print("sigmoid bands of power_map.cu on the card (every float32 past -18, -89 and 19): "
+          + ("hold: sigmoid gradient maps run with the rejection and the saturation exit"
+             if bands else "FAIL: sigmoid gradient maps run without the rejection and the"
+             " saturation exit"), flush=True)
     rows = []
     for name, with_grad, err in (("power_map_value", False, err_value),
                                  ("power_map_vag", True, err_vag)):
         before = pmk.LAUNCHES[name]
-        ms = cuda_time_ms(kernel_call(with_grad), k, reps)
-        per_map = (pmk.LAUNCHES[name] - before) / (k * reps + 1)
+        if with_grad:
+            # The redesign against its sequential twin, in turns.
+            ms, twin_ms, turns = twin_times(
+                kernel_call(True),
+                lambda: pmk.twin_value_and_grad(*args, approx=True, sigmoid=False), k, reps)
+            per_map = (pmk.LAUNCHES[name] - before) / (2 * (k * reps + 1))
+        else:
+            ms = cuda_time_ms(kernel_call(False), k, reps)
+            per_map = (pmk.LAUNCHES[name] - before) / (k * reps + 1)
         plain = pmk.plain_value_and_grad if with_grad else pmk.plain_value
         plain_ms = cuda_time_ms(lambda: plain(*args), 2, 3)
         bytes_moved = P * (8 + (12 if with_grad else 4))
@@ -619,12 +646,19 @@ def main() -> int:
               f" plain {plain_ms:.3f} ms/map; bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of the"
               f" kernel's time ({ops_px} ops/px + {ops_launch} per launch, {bytes_moved / P:.0f}"
               f" B/px)", flush=True)
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
-        })
+        }
+        if with_grad:
+            row["twin_ms"] = twin_ms
+            print(f"power_map_vag: redesigned {ms:.4f} ms/map against its sequential twin"
+                  f" power_map_vag_seq {twin_ms:.4f} ms/map (turns twin, new, new, twin:"
+                  f" {', '.join(f'{x:.4f}' for x in turns)})", flush=True)
+            vag_issue_bound(scene, X, Y, groups, txs, scal, dev, P)
+        rows.append(row)
     print(f"end to end power_map 1024^2: value {e2e_ms:.4f} ms/map ({P / e2e_ms * 1e3:.4g}"
           f" points/s), value+grad {e2e_vag_ms:.4f} ms/map ({P / e2e_vag_ms * 1e3:.4g} points/s)",
           flush=True)
@@ -635,6 +669,7 @@ def main() -> int:
         rows += phases(dev, peak_fp32)
         print(f"phases {first}-{first + 3}: {time.perf_counter() - t0:.1f} s", flush=True)
     twin_phase(dev)
+    redesign_phase(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -1265,6 +1300,257 @@ def twin_phase(dev) -> None:
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# -- the redesigned B2 and B6: their parts, their SASS, and their twins (phases 6, 14, 20) --
+
+_CENSUS: dict = {}
+
+
+def kernel_census(source: str) -> dict:
+    """``sass_census.kernel_loops`` of one built source, keyed by short
+    kernel name (``opt_solver_kernel<1, 1, true>``), once per run."""
+    from differt2d_tpu_torch.ops import _build, sass_census
+
+    if source not in _CENSUS:
+        path, _ = _build.build(source)
+        loops = sass_census.kernel_loops(path)
+        _CENSUS[source] = {sass_census.short_name(k): v for k, v in loops.items()}
+    return _CENSUS[source]
+
+
+def issue_slots_ms(instructions: float) -> float:
+    """Least ms to issue ``instructions`` thread instructions: an SM issues
+    four warp instructions (128 thread instructions) a clock, at the card's
+    maximum SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    return instructions / (sms * 128 * mhz * 1e6) * 1e3
+
+
+def describe(p: dict) -> str:
+    keys = ("total", "fp32", "sfu", "MUFU.RCP", "MUFU.RSQ", "MUFU.EX2", "integer", "memory",
+            "control", "slow_path_branches", "calls")
+    return ", ".join(f"{k} {p[k]:g}" for k in keys if p.get(k))
+
+
+def adam_step(kernel: str, ris: bool) -> dict:
+    """One adam step of solver ``kernel`` from its SASS: the pass of its
+    adam loops (the innermost loops with two square roots or more a pass)
+    through the RIS residual (``ris``: the fewest square roots, two a step)
+    or through the wall residual or Fermat's lengths (the most, three a
+    step), the shortest of those, divided by the steps the pass holds where
+    the loop is unrolled; None where no pass holds a whole step."""
+    loops = kernel_census("opt_solver.cu")[kernel]["loops"]
+    cands = [p for loop in loops for p in loop if p.get("MUFU.RSQ", 0) >= 2]
+    if not cands:
+        return None  # no loop pass holds a whole step (a rotated or split loop)
+    rsq = (min if ris else max)(q["MUFU.RSQ"] for q in cands)
+    p = min((q for q in cands if q["MUFU.RSQ"] == rsq), key=lambda q: q["total"])
+    steps = max(1, rsq // (2 if ris else 3))
+    return {key: v / steps for key, v in p.items()}
+
+
+def blocked_tests(kernel: str) -> tuple:
+    """``(full test, rejected test)`` passes of the gradient ``kernel``'s
+    blocked-test loops from its SASS: the redesigned sweep's loops (those
+    with a bit scan, FLO) where it has them, the sequential sweep's (those
+    with the three divisions of seg_vag) otherwise; the rejected test is
+    None for the latter.  Each the median over the kernel's loops."""
+    import statistics as st
+
+    loops = kernel_census("power_map.cu")[kernel]["loops"]
+    fast = [loop for loop in loops if any(k.startswith("FLO") for p in loop for k in p)]
+    seq = [loop for loop in loops if any(p.get("MUFU.RCP", 0) >= 3 for p in loop)]
+    chosen = fast or seq
+    check(bool(chosen), f"{kernel}: no blocked-test loop in the SASS")
+    full = sorted((max(loop, key=lambda q: q["total"]) for loop in chosen),
+                  key=lambda q: q["total"])[len(chosen) // 2]
+    rej = None
+    if fast:
+        rej = sorted((min(loop, key=lambda q: q["total"]) for loop in chosen),
+                     key=lambda q: q["total"])[len(chosen) // 2]
+    return full, rej
+
+
+def vag_issue_bound(scene, X, Y, groups, txs, scal, dev, P: int) -> None:
+    """Registers, blocks per SM, the instructions of one blocked test and
+    the issue-slot bound of the 1024^2 basic-scene gradient map, for the
+    redesigned kernel and its twin (hard_sigmoid, the main path's)."""
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+    from differt2d_tpu_torch.ops import power_map_looped as pml
+    from differt2d_tpu_torch.ops.looped_tuning import sweep_census
+
+    census = kernel_census("power_map.cu")
+    tests = sum(cand_ops([int(i) for i in row], scene.kinds, True)[1]
+                for rows in groups.values() for row in rows) * txs.shape[0]
+    # The work these inputs need: the tests of live candidates (their gates
+    # live), rejected or not, from an identity-table census of 32 tiles.
+    inputs = pml.looped_inputs(groups, dev, approx=True, sigmoid=False)
+    plan = pml.make_plan(X, Y, txs, scene.walls, scene.kind, scal, inputs, approx=True,
+                         sigmoid=False, cull=False, shadow=False)
+    T = plan.tiles[0] * plan.tiles[1]
+    c = sweep_census(scene, X, Y, plan, inputs, scal, list(range(0, T, max(1, T // 32))), True)
+    listed = max(c["listed"], 1)
+    for name, fast in (("power_map_vag", True), ("power_map_vag_seq", False)):
+        kern = f"power_map_kernel<true, 1, {'true' if fast else 'false'}>"
+        full, rej = blocked_tests(kern)
+        if fast:
+            per_test = ((c["live_rejected"] * rej["total"]
+                         + (c["live"] - c["live_rejected"]) * full["total"]) / listed)
+        else:
+            per_test = full["total"]
+        bound = issue_slots_ms(P * tests * per_test)
+        print(f"{name} (hard_sigmoid): {census[kern]['registers']} registers,"
+              f" {pmk.occupancy(True, 1, fast, len(scene.kinds))} blocks of 128 per SM;"
+              f" one blocked test: {describe(full)}"
+              + (f"; a rejected test: {describe(rej)}" if rej else "")
+              + f"; issue-slot bound {bound:.4f} ms ({tests} tests/px"
+              + (f", live {c['live'] / listed:.2%}, live and rejected"
+                 f" {c['live_rejected'] / listed:.2%} of them" if fast else "")
+              + ")", flush=True)
+
+
+def solver_issue_bound(osk, inputs, num_walls: int, soft: int, ris: bool, P: int,
+                       name: str) -> None:
+    """Registers, blocks per SM, one adam step's instructions and the
+    issue-slot bound of the solves of one map (every candidate's steps),
+    for the redesigned kernel and its twin."""
+    obj = osk.OBJECTIVES[inputs.objective]
+    C = int(inputs.cand.numel())
+    for kname, fast in (("opt_solver_value", True), ("opt_solver_value_seq", False)):
+        kern = f"opt_solver_kernel<{soft}, {obj}, {'true' if fast else 'false'}>"
+        step = adam_step(kern, ris)
+        regs = kernel_census("opt_solver.cu")[kern]["registers"]
+        blocks = osk.occupancy(inputs.objective, soft, fast, num_walls)
+        steps = "one adam step: not measured (no loop pass holds a whole step)"
+        if step is not None:
+            bound = issue_slots_ms(P * C * inputs.steps * step["total"])
+            steps = (f"one adam step: {describe(step)}; issue-slot bound of the steps"
+                     f" {bound:.4f} ms")
+        print(f"{kname}, {name}: {regs} registers, {blocks} blocks of"
+              f" 128 per SM; {steps}", flush=True)
+
+
+def redesign_phase(dev) -> None:
+    """Phase 20: the redesigned opt_solver_value and power_map_vag against
+    their sequential twins (the same sources with the redesign off),
+    ``torch.equal`` (NaN equal to NaN at the same elements)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from differt2d_tpu_torch import Scene, prng
+    from differt2d_tpu_torch import tracer as tr
+    from differt2d_tpu_torch.logic import sigmoid
+    from differt2d_tpu_torch.ops import opt_solver_kernel as osk
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+
+    t_phase = time.perf_counter()
+    key = prng.PRNGKey(1234)
+    square = Scene.square_scene()
+    ris = square.add_ris([[0.5, 0.3], [0.5, 0.7]], phi=math.pi / 4)
+    ris_only = lambda o: o.kind == 1  # noqa: E731
+    sq = square.walls.cpu().numpy()
+    zero_wall = Scene.from_arrays(
+        np.concatenate([sq, np.array([[[0.5, 0.5], [0.5, 0.5]]], np.float32)]),
+        transmitters={"tx": square.transmitters["tx"].cpu().numpy()},
+        receivers={"rx": [0.5, 0.5]}, device=dev)
+    soft = dict(approx=True, key=key)
+    fermat = dict(order=1, solver="fermat", steps=100, **soft)
+    solver_cases = [  # (name, scene, size, options, candidate groups or None, grid)
+        ("RIS MPT 1000 steps", ris, 1024,
+         dict(order=1, solver="mpt", steps=1000, filter_objects=ris_only, **soft), None, None),
+        ("walls Fermat", square, 1024, fermat, None, None),
+        ("walls MPT", square, 1024, dict(order=1, solver="mpt", steps=100, **soft), None, None),
+        ("walls Fermat orders 0-1", square, 256,
+         dict(fermat, order=None, min_order=0, max_order=1), None, None),
+        ("hard logic MPT", square, 256, dict(order=1, solver="mpt", steps=100, approx=False,
+                                             key=key), None, None),
+        ("sigmoid, orders 0-1", square, 256, dict(fermat, order=None, min_order=0,
+                                                  max_order=1, function=sigmoid), None, None),
+        ("two TX", square.update_transmitters(tx2=[0.8, 0.3]), 256, fermat, None, None),
+        ("TX grid", square, 256, dict(fermat, on_transmitters=True), None, None),
+        ("RIS + vertex", ris.add_vertex([0.25, 0.75]), 256,
+         dict(order=1, solver="mpt", steps=300, **soft), {1: np.array([[4]], np.int32)}, None),
+        ("zero-length wall on a pixel", zero_wall, 257,
+         dict(order=1, solver="mpt", steps=100, **soft), None, (0.0, 1.0)),
+    ]
+    for name, sc, size, kw, groups, span in solver_cases:
+        lo, hi = span or (0.01, 0.99)
+        x = torch.linspace(lo, hi, size, device=dev)
+        X, Y = torch.meshgrid(x, x, indexing="xy")
+        o = {**tr._OPTIONS, **kw}
+        if groups is None:
+            groups = tr._groups_for(sc, o)
+        args = osk.solver_request(sc, X, Y, groups, **tr._solver_options(o))
+        kkw = dict(approx=o["approx"], sigmoid=o["function"] is sigmoid)
+        before, twins = osk.LAUNCHES["opt_solver_value"], osk.TWIN_LAUNCHES["opt_solver_value_seq"]
+        v, tv = osk.value(*args, **kkw), osk.twin_value(*args, **kkw)
+        torch.cuda.synchronize()
+        check(osk.LAUNCHES["opt_solver_value"] > before
+              and osk.TWIN_LAUNCHES["opt_solver_value_seq"] > twins,
+              f"{name}: the solver kernel or its twin did not run")
+        check(twin_equal(v, tv), f"{name} {size}^2: opt_solver_value != opt_solver_value_seq at"
+                                 f" {int((v != tv).sum())} pixels")
+        print(f"  {name} {size}^2: opt_solver_value == opt_solver_value_seq, torch.equal"
+              f" ({v.numel()} pixels, {int((v != 0).sum())} nonzero)", flush=True)
+
+    basic = Scene.basic_scene()
+    mixed = Scene.square_scene().add_ris([[0.5, 0.3], [0.5, 0.7]]).add_vertex([0.25, 0.75])
+    o1 = dict(max_order=1, approx=True)
+    vag_cases = [
+        ("basic scene", basic, 1024, o1),
+        ("hard logic", basic, 256, dict(max_order=1, approx=False)),
+        ("sigmoid", basic, 256, dict(o1, function=sigmoid)),
+        ("RIS + vertex", mixed, 256, o1),
+        ("two TX", basic.update_transmitters(tx2=[0.8, 0.8]), 256, o1),
+        ("TX grid", basic, 256, dict(o1, on_transmitters=True)),
+        ("order 2", basic, 256, dict(max_order=2, approx=True)),
+        ("duplicated wall, order 2", duplicated_wall_scene(dev), 256,
+         dict(max_order=2, approx=True)),
+        ("short walls", short_wall_scene(dev), 256, o1),
+        ("short walls, sigmoid", short_wall_scene(dev), 256, dict(o1, function=sigmoid)),
+    ]
+    for name, sc, size, kw in vag_cases:
+        X, Y = grid(size, dev)
+        o = {**tr._OPTIONS, **kw}
+        groups = tr._groups_for(sc, o)
+        sig = o["function"] is sigmoid
+        target = sc.swap_ends() if o["on_transmitters"] else sc
+        txs = torch.stack(list(target.transmitters.values())).contiguous()
+        inputs = pmk.kernel_inputs(groups, dev, approx=o["approx"], sigmoid=sig)
+        args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), txs, sc.walls, sc.kind,
+                sc.phi, tuple(o[n] for n in tr._SCALAR_NAMES), inputs)
+        kkw = dict(approx=o["approx"], sigmoid=sig)
+        (v, g), (tv, tg) = pmk.value_and_grad(*args, **kkw), pmk.twin_value_and_grad(*args, **kkw)
+        same = [twin_equal(v, tv), twin_equal(g, tg)]
+        check(all(same), f"{name} {size}^2: power_map_vag != power_map_vag_seq (value, gradient:"
+                         f" {same}; {int((g != tg).sum())} gradient elements differ)")
+        print(f"  {name} {size}^2: power_map_vag == power_map_vag_seq, torch.equal on value and"
+              f" gradient ({v.numel()} pixels)", flush=True)
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def short_wall_scene(device):
+    """``Scene.basic_scene()`` with three walls of lengths 2^-100, 2^-115 and
+    2^-124 at the origin (their blocked tests have |den| from about 2^-101
+    down into the subnormals, below the rejection's 2^-90) and one of zero
+    length at (1, 1)."""
+    import numpy as np
+
+    from differt2d_tpu_torch import Scene
+
+    basic = Scene.basic_scene(device=device)
+    w = basic.walls.cpu().numpy()
+    short = np.array([[[0, 0], [2.0 ** -100, 2.0 ** -101]], [[0, 0], [2.0 ** -115, 2.0 ** -116]],
+                      [[0, 0], [2.0 ** -124, 2.0 ** -125]], [[1, 1], [1, 1]]], np.float32)
+    return Scene.from_arrays(np.concatenate([w, short]),
+                             transmitters={"tx": basic.transmitters["tx"].cpu().numpy()},
+                             receivers={"rx": [0.5, 0.5]}, device=device)
+
+
 # Operations of an order-1 Fermat/MPT solve per pixel and candidate, counted
 # as OPS_* above (selects, compares, min/max and negations free; values that
 # do not depend on the pixel, such as the bias corrections 1 - b**count,
@@ -1461,9 +1747,16 @@ def solver_phases(dev, peak_fp32: float) -> list:
         args, kkw, groups, sc, kw = reqs[name]
         inputs = args[-1]
         before = osk.LAUNCHES["opt_solver_value"]
-        ms = cuda_time_ms(lambda: osk.value(*args, **kkw), k, reps)
-        per_map = (osk.LAUNCHES["opt_solver_value"] - before) / (k * reps + 1)
+        # The redesign against its twin, in turns.
+        ms, twin_ms, turns = twin_times(lambda: osk.value(*args, **kkw),
+                                        lambda: osk.twin_value(*args, **kkw), k, reps)
+        per_map = (osk.LAUNCHES["opt_solver_value"] - before) / (2 * (k * reps + 1))
         e2e = cuda_time_ms(lambda: power_map(sc, X, Y, **kw), k, reps)
+        print(f"opt_solver_value, {name} 1024^2: redesigned {ms:.4f} ms/map against its"
+              f" sequential twin opt_solver_value_seq {twin_ms:.4f} ms/map (turns twin, new,"
+              f" new, twin: {', '.join(f'{x:.4f}' for x in turns)})", flush=True)
+        solver_issue_bound(osk, inputs, len(sc.kinds), pmk._soft_mode(kkw["approx"],
+                           kkw["sigmoid"]), name.startswith("RIS"), P, name)
         ops_px, ops_launch = solver_ops(groups[1], sc.kinds, inputs.objective, inputs.steps,
                                         args[2].shape[0])
         bytes_moved = P * 12 + 4 * inputs.bc.numel()
@@ -1479,7 +1772,7 @@ def solver_phases(dev, peak_fp32: float) -> list:
                 "name": "opt_solver_value", "route": "cuda", "source": SOLVER_SOURCE,
                 "replaces": SOLVER_REPLACES,
                 "launches": launches[name][0]["opt_solver_value"], "max_abs_err": err[name],
-                "ms": ms, "plain_ms": plain_ms[name], "bound_ms": bound_ms,
+                "ms": ms, "twin_ms": twin_ms, "plain_ms": plain_ms[name], "bound_ms": bound_ms,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
             })
     print("library_ms: null -- no single PyTorch call computes the solve", flush=True)

@@ -1,5 +1,5 @@
 // Power-map kernels for NVIDIA Hopper (sm_90a): power_map_value and
-// power_map_vag.
+// power_map_vag (with its sequential twin power_map_vag_seq).
 //
 // Replaces the unrolled Pallas TPU kernel
 // differt2d_tpu/ops/pallas_kernels.py::build_power_map_kernel
@@ -33,9 +33,16 @@
 // Bound on the H100: FP32 compute.  A 1024x1024 map of the basic scene
 // (order <= 1: 8 candidates, 7 walls) reads 8 B and writes 4 B per pixel
 // (12 B/px; 20 B/px with the gradient) against a few thousand flops per
-// pixel, so bytes never bound it.  This first version does nothing about
-// that beyond keeping every intermediate in registers: it is the simple,
-// right kernel, and making it fast is later work.
+// pixel, so bytes never bound it.  power_map_value keeps every intermediate
+// in registers and does nothing more.  power_map_vag runs the looped
+// kernels' redesigned blocked sweep over all walls (fast_sweep in
+// power_map_common.cuh: a division-free rejection of clear misses, the
+// maximum hit and its first test found in activation space with one
+// seg_vag and two contractions for that winner after the sweep, warp-wide
+// exits where every lane's gates are dead or its path is fully blocked,
+// 16-byte test records and shared memory sized to W); every bit stays as
+// the sequential sweep leaves it, and that sweep, the kernel as it was, is
+// exported as power_map_vag_seq for checks.
 //
 // Numerics: built without --use_fast_math; the sigmoid uses expf, not
 // __expf (its f32 saturation was measured under flush-to-zero, see
@@ -59,8 +66,9 @@ namespace {
 
 // One candidate row (its O wall indices) against every wall: the
 // transmitter's mirror images are formed per thread.
-template <bool G, int SOFT, int O>
-__device__ __forceinline__ void contrib_row(const WallRec* __restrict__ sw, int W,
+template <bool G, int SOFT, int O, bool FAST>
+__device__ __forceinline__ void contrib_row(const WallRec* __restrict__ sw,
+                                            const AllWalls& walls,
                                             const int* __restrict__ ids, float txx,
                                             float txy, float px, float py,
                                             const Scalars& s, float& val, float& gx,
@@ -70,19 +78,35 @@ __device__ __forceinline__ void contrib_row(const WallRec* __restrict__ sw, int 
   for (int j = 0; j < O; ++j) id[j] = __ldg(ids + j);
   float imx[O > 0 ? O : 1], imy[O > 0 ? O : 1];
   mirror_chain<O>(sw, id, txx, txy, imx, imy);
-  contrib<G, SOFT, O>(sw, id, imx, imy, txx, txy, px, py, s, AllWalls{W}, val, gx, gy);
+  contrib<G, SOFT, O, AllWalls, FAST>(sw, id, imx, imy, txx, txy, px, py, s, walls, val, gx,
+                                      gy);
 }
 
-template <bool G, int SOFT>
+// FAST = false: every wall's full test (power_map_value, power_map_vag_seq),
+// the walls in a static 512-record array, a thread per pixel that exits
+// past P.  FAST = true (power_map_vag): the redesigned sweep (fast_sweep,
+// with the rejection bounds tlo, thi, the saturation margin sat and the
+// feature bits of power_map_kernel.rejection_bounds), the walls and their
+// 16-byte test records in dynamic shared memory sized to W, and every
+// thread of the last block kept for the warp votes (past P it computes a
+// copy of pixel P - 1 and writes nothing).
+template <bool G, int SOFT, bool FAST>
 __global__ void __launch_bounds__(PM_BLOCK)
     power_map_kernel(const float* __restrict__ px, const float* __restrict__ py,
                      int P, const float* __restrict__ txs, int n_tx,
                      const float* __restrict__ walls,
                      const int* __restrict__ kind,
                      const float* __restrict__ phi, int W,
-                     const int* __restrict__ cand, int C, Scalars s,
-                     float* __restrict__ out, float* __restrict__ gout) {
-  __shared__ WallRec sw[PM_MAX_WALLS];
+                     const int* __restrict__ cand, int C, float tlo, float thi, float sat,
+                     Scalars s, float* __restrict__ out,
+                     float* __restrict__ gout) {
+  __shared__ WallRec sw_static[FAST ? 1 : PM_MAX_WALLS];
+  extern __shared__ float4 pm_dyn[];
+  int NW = (W + 31) / 32;
+  // FAST layout: sv[W], then the records sw[W], then solid[NW].
+  float4* sv = pm_dyn;
+  WallRec* sw = FAST ? reinterpret_cast<WallRec*>(pm_dyn + W) : sw_static;
+  unsigned* solid = reinterpret_cast<unsigned*>(pm_dyn + W + (W * sizeof(WallRec) + 15) / 16);
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
     WallRec r;
     r.ax = walls[4 * i + 0];
@@ -107,11 +131,23 @@ __global__ void __launch_bounds__(PM_BLOCK)
     r.cosp = cosf(phi[i]);
     r.kind = kind[i];
     sw[i] = r;
+    if constexpr (FAST) sv[i] = make_float4(r.pax, r.pay, r.pbx - r.pax, r.pby - r.pay);
+  }
+  if constexpr (FAST) {
+    for (int k = threadIdx.x; k < NW; k += blockDim.x) {
+      unsigned word = 0u;
+      for (int b = 0; b < 32 && 32 * k + b < W; ++b)
+        if (kind[32 * k + b] != KIND_VERTEX) word |= 1u << b;
+      solid[k] = word;
+    }
   }
   __syncthreads();
 
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!FAST && idx >= P) return;
+  int p = FAST ? min(idx, P - 1) : idx;
+  AllWalls aw{W};
+  if constexpr (FAST) aw = AllWalls{W, NW, sv, solid, tlo, thi, sat, 0xffffffffu, kGateExit};
   float x = px[p], y = py[p];
   float v = 0.0f, gx = 0.0f, gy = 0.0f;
   for (int t = 0; t < n_tx; ++t) {
@@ -122,19 +158,19 @@ __global__ void __launch_bounds__(PM_BLOCK)
       float cv, cgx, cgy;
       switch (__ldg(row)) {
         case 0:
-          contrib_row<G, SOFT, 0>(sw, W, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
+          contrib_row<G, SOFT, 0, FAST>(sw, aw, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
           break;
         case 1:
-          contrib_row<G, SOFT, 1>(sw, W, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
+          contrib_row<G, SOFT, 1, FAST>(sw, aw, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
           break;
         case 2:
-          contrib_row<G, SOFT, 2>(sw, W, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
+          contrib_row<G, SOFT, 2, FAST>(sw, aw, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
           break;
         case 3:
-          contrib_row<G, SOFT, 3>(sw, W, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
+          contrib_row<G, SOFT, 3, FAST>(sw, aw, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
           break;
         default:
-          contrib_row<G, SOFT, 4>(sw, W, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
+          contrib_row<G, SOFT, 4, FAST>(sw, aw, row + 1, txx, txy, x, y, s, cv, cgx, cgy);
           break;
       }
       tv = tv + cv;
@@ -151,6 +187,7 @@ __global__ void __launch_bounds__(PM_BLOCK)
       gy = t == 0 ? tgy : gy + tgy;
     }
   }
+  if (FAST && idx >= P) return;
   out[p] = v;
   if (G) {
     gout[2 * p] = gx;
@@ -158,30 +195,40 @@ __global__ void __launch_bounds__(PM_BLOCK)
   }
 }
 
-template <bool G>
+// Dynamic shared memory of the FAST kernel: sv[W], sw[W], solid[NW].
+size_t fast_smem(int W) {
+  size_t recs = (static_cast<size_t>(W) * sizeof(WallRec) + 15) / 16;
+  return (static_cast<size_t>(W) + recs) * sizeof(float4) + ((W + 31) / 32) * sizeof(unsigned);
+}
+
+using MapKernel = void (*)(const float*, const float*, int, const float*, int, const float*,
+                           const int*, const float*, int, const int*, int, float, float, float,
+                           Scalars, float*, float*);
+
+template <bool G, bool FAST>
+MapKernel select_kernel(int soft_mode) {
+  if (soft_mode == SOFT_NONE) return power_map_kernel<G, SOFT_NONE, FAST>;
+  if (soft_mode == SOFT_HARD) return power_map_kernel<G, SOFT_HARD, FAST>;
+  return power_map_kernel<G, SOFT_SIGMOID, FAST>;
+}
+
+bool bad_args(int soft_mode, int P, int n_tx, int W, int C) {
+  return P <= 0 || W < 0 || W > PM_MAX_WALLS || C < 0 || n_tx < 0 ||
+         soft_mode < SOFT_NONE || soft_mode > SOFT_SIGMOID;
+}
+
+template <bool G, bool FAST>
 int launch(int soft_mode, const float* px, const float* py, int P,
            const float* txs, int n_tx, const float* walls, const int* kind,
-           const float* phi, int W, const int* cand, int C, Scalars s,
-           float* out, float* gout, cudaStream_t stream) {
-  if (P <= 0 || W < 0 || W > PM_MAX_WALLS || C < 0 || n_tx < 0 ||
-      soft_mode < SOFT_NONE || soft_mode > SOFT_SIGMOID)
-    return static_cast<int>(cudaErrorInvalidValue);
+           const float* phi, int W, const int* cand, int C, float tlo, float thi,
+           float sat, Scalars s, float* out, float* gout,
+           cudaStream_t stream) {
+  if (bad_args(soft_mode, P, n_tx, W, C)) return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // clear any earlier error of this runtime
   dim3 grid((P + PM_BLOCK - 1) / PM_BLOCK), block(PM_BLOCK);
-  switch (soft_mode) {
-    case SOFT_NONE:
-      power_map_kernel<G, SOFT_NONE><<<grid, block, 0, stream>>>(
-          px, py, P, txs, n_tx, walls, kind, phi, W, cand, C, s, out, gout);
-      break;
-    case SOFT_HARD:
-      power_map_kernel<G, SOFT_HARD><<<grid, block, 0, stream>>>(
-          px, py, P, txs, n_tx, walls, kind, phi, W, cand, C, s, out, gout);
-      break;
-    default:
-      power_map_kernel<G, SOFT_SIGMOID><<<grid, block, 0, stream>>>(
-          px, py, P, txs, n_tx, walls, kind, phi, W, cand, C, s, out, gout);
-      break;
-  }
+  select_kernel<G, FAST>(soft_mode)<<<grid, block, FAST ? fast_smem(W) : 0, stream>>>(
+      px, py, P, txs, n_tx, walls, kind, phi, W, cand, C, tlo, thi, sat, s, out,
+      gout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,20 +244,58 @@ int power_map_value(int soft_mode, const float* px, const float* py, int P,
                     int C, float alpha, float tol, float patch, float r_coef,
                     float height, float* out, void* stream) {
   Scalars s{alpha, tol, patch, r_coef, height};
-  return launch<false>(soft_mode, px, py, P, txs, n_tx, walls, kind, phi, W,
-                       cand, C, s, out, nullptr,
-                       static_cast<cudaStream_t>(stream));
+  return launch<false, false>(soft_mode, px, py, P, txs, n_tx, walls, kind, phi, W, cand, C,
+                              0.0f, 0.0f, 0.0f, s, out, nullptr,
+                              static_cast<cudaStream_t>(stream));
 }
 
-// Value and pixel gradient: out[P], gout[P, 2].
+// Value and pixel gradient through the redesigned sweep: out[P], gout[P, 2].
+// tlo, thi and sat are the rejection bounds and the saturation margin of
+// power_map_kernel.rejection_bounds (grad=True).
 int power_map_vag(int soft_mode, const float* px, const float* py, int P,
                   const float* txs, int n_tx, const float* walls,
                   const int* kind, const float* phi, int W, const int* cand,
-                  int C, float alpha, float tol, float patch, float r_coef,
-                  float height, float* out, float* gout, void* stream) {
+                  int C, float tlo, float thi, float sat, float alpha, float tol,
+                  float patch, float r_coef, float height, float* out, float* gout,
+                  void* stream) {
   Scalars s{alpha, tol, patch, r_coef, height};
-  return launch<true>(soft_mode, px, py, P, txs, n_tx, walls, kind, phi, W,
-                      cand, C, s, out, gout, static_cast<cudaStream_t>(stream));
+  return launch<true, true>(soft_mode, px, py, P, txs, n_tx, walls, kind, phi, W, cand, C,
+                            tlo, thi, sat, s, out, gout,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The same map through the sequential sweep (every wall's full test, the
+// kernel as it was before the redesign): the redesign's bitwise reference,
+// called by checks only.  It takes power_map_vag's arguments and ignores
+// tlo, thi and sat.
+int power_map_vag_seq(int soft_mode, const float* px, const float* py, int P,
+                      const float* txs, int n_tx, const float* walls,
+                      const int* kind, const float* phi, int W, const int* cand,
+                      int C, float tlo, float thi, float sat, float alpha, float tol,
+                      float patch, float r_coef, float height, float* out, float* gout,
+                      void* stream) {
+  Scalars s{alpha, tol, patch, r_coef, height};
+  return launch<true, false>(soft_mode, px, py, P, txs, n_tx, walls, kind, phi, W, cand, C,
+                             tlo, thi, sat, s, out, gout,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM, into *blocks, of the kernel for soft_mode: the
+// value kernel (grad 0), the redesigned gradient kernel (grad 1, fast 1,
+// W walls) or its sequential twin (grad 1, fast 0).
+int power_map_occupancy(int grad, int soft_mode, int fast, int W, int* blocks) {
+  if (bad_args(soft_mode, 1, 0, W, 0) || (!grad && fast))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MapKernel k = !grad ? select_kernel<false, false>(soft_mode)
+                      : (fast ? select_kernel<true, true>(soft_mode)
+                              : select_kernel<true, false>(soft_mode));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k, PM_BLOCK, fast ? fast_smem(W) : 0));
+}
+
+// sigmoid_band_probe (power_map_common.cuh) of this build's sigmoid.
+int power_map_sigmoid_band_probe(float bound, int test, unsigned* fails, void* stream) {
+  return sigmoid_band_probe_launch(bound, test, fails, stream);
 }
 
 }  // extern "C"

@@ -83,7 +83,8 @@
 //     forms that one wall's partials after the sweep (a tie inside (0, 1)
 //     or a NaN reruns the sequential sweep for the candidate);
 //   - a persistent grid takes the tiles longest first.
-// The proofs are at fast_blocked and rejected.  The sequential sweep
+// The proofs are at fast_sweep and rejected (power_map_common.cuh, where
+// power_map_vag shares the sweep).  The sequential sweep
 // (FAST = false, exported as power_map_looped_value_seq / _vag_seq) is the
 // program as it was before: every listed wall's full test, one block per
 // tile in grid order; checks hold the two equal bit for bit.
@@ -96,8 +97,6 @@
 // LP_MAX_THREADS (power_map_looped.py repeats these defines, and a test
 // holds them equal).
 
-#include <string.h>
-
 #include "power_map_common.cuh"
 
 #define LP_MAX_ORDER 4
@@ -107,106 +106,6 @@
 namespace {
 
 constexpr int LP_MAX_WORDS = LP_MAX_WALLS / 32;
-constexpr float kRejectMinDen = 0x1p-90f;  // power_map_looped.REJECT_MIN_DEN
-constexpr int kGateExit = 1;  // `features` bit: the gate exits (power_map_looped.FEATURES)
-
-// -- the redesigned sweep's tests -------------------------------------------------
-//
-// A wall's test record: (pax, pay, pbx - pax, pby - pay), formed once per
-// block from aux, so a test reads one 16-byte shared vector.  The
-// differences are the ones seg_margin and seg_vag form (w.pbx - w.pax), so
-// the numerators and the denominator below are theirs, bit for bit.
-__device__ __forceinline__ void test_terms(const float4 v, float cx, float cy, float dx,
-                                           float dy, float& num_a, float& num_b,
-                                           float& den) {
-  float avx = v.z, avy = v.w;
-  float bvx = cx - dx, bvy = cy - dy;
-  float cvx = v.x - cx, cvy = v.y - cy;
-  num_a = bvy * cvx - bvx * cvy;
-  num_b = avx * cvy - avy * cvx;
-  den = avy * bvx - avx * bvy;
-}
-
-// Division-free rejection of a clear miss.  With s = num, d = den (or both
-// negated where den < 0: the same quotient, rounded the same), the test's
-// parameter is t = fl(s / d).  The host's bounds (power_map_looped.
-// rejection_bounds) are: T_lo, the largest float32 t whose lower margin
-// zmargin(t + 0.005) is at or below the floor, and T_hi, the least whose
-// upper margin zmargin(1.005 - t) is, both computed in float32 as the
-// kernels compute them; tlo = T_lo (1 + 2^-20) rounded down, thi = T_hi
-// (1 + 2^-20) rounded up, |T| >= 2^-20.  With d >= 2^-90, the products
-// d * tlo and d * thi are normal (or overflow to an infinity, which rejects
-// nothing since s is finite), so fl(d * tlo) <= d * tlo (1 - 2^-24) <=
-// d * T_lo: s <= fl(d * tlo) gives s / d <= T_lo exactly, and division
-// rounds monotonically, so t <= T_lo and the lower margin is at or below the
-// floor (the margins are monotone in t, alpha > 0).  Likewise for thi.
-// Finite s_a, s_b and d make every one of the four margins a number (no
-// NaN: finite den means finite wall and segment vectors), so the test's
-// margin, their min, is at or below the floor too.  The floors: hard logic,
-// any miss (t_a < -0.005 or > 1.005 gives -1); hard_sigmoid, 0
-// (clip01_6 and hsig give exactly 0, with slope 0 under relu6's rule);
-// sigmoid, -18 for the value map (1 - clip(sigm(m)) is exactly 1) and -89
-// with the gradient (sigm(m) is exactly 0, and so is its slope), each held
-// on the card for every float32 below it by sigmoid_band_probe.  Such a
-// test leaves the running maximum of the value sweep as it is or below the
-// floor, where the validity does not see it (see fast_blocked), so
-// skipping it changes no bit.  Where the host cannot bound a side, its
-// bound is -inf / inf and it rejects nothing.
-__device__ __forceinline__ bool rejected(float num_a, float num_b, float den, float tlo,
-                                         float thi) {
-  float d = fabsf(den);
-  bool neg = den < 0.0f;
-  float sa = neg ? -num_a : num_a;
-  float sb = neg ? -num_b : num_b;
-  if (!(d >= kRejectMinDen && d < INFINITY && fabsf(sa) < INFINITY && fabsf(sb) < INFINITY))
-    return false;
-  float lo = d * tlo, hi = d * thi;
-  return sa <= lo || sa >= hi || sb <= lo || sb >= hi;
-}
-
-// seg_margin's result from its numerators, in its order of operations.
-template <int SOFT>
-__device__ __forceinline__ float margin_of(float num_a, float num_b, float den,
-                                           float alpha) {
-  if (den == 0.0f) return SOFT != SOFT_NONE ? -INFINITY : -1.0f;  // t = +inf
-  float t_a = num_a / den, t_b = num_b / den;
-  if (SOFT == SOFT_NONE) {
-    bool hit = t_a >= -kTolIntersect && t_a <= kOnePlusTol &&
-               t_b >= -kTolIntersect && t_b <= kOnePlusTol;
-    return hit ? 1.0f : -1.0f;
-  }
-  return pmin(pmin(zmargin<SOFT>(t_a + kTolIntersect, alpha),
-                   zmargin<SOFT>(kOnePlusTol - t_a, alpha)),
-              pmin(zmargin<SOFT>(t_b + kTolIntersect, alpha),
-                   zmargin<SOFT>(kOnePlusTol - t_b, alpha)));
-}
-
-// seg_vag's hit from its numerators, in its order of operations (the same
-// value, bit for bit; no partials).
-template <int SOFT>
-__device__ __forceinline__ float hit_of(float num_a, float num_b, float den, float alpha) {
-  bool dz = den == 0.0f;
-  float safe_den = dz ? 1.0f : den;
-  float t_a = dz ? INFINITY : num_a / safe_den;
-  float t_b = dz ? INFINITY : num_b / safe_den;
-  float inr_a = pmin(soft<SOFT>(t_a + kTolIntersect, alpha),
-                     soft<SOFT>(kOnePlusTol - t_a, alpha));
-  float inr_b = pmin(soft<SOFT>(t_b + kTolIntersect, alpha),
-                     soft<SOFT>(kOnePlusTol - t_b, alpha));
-  return pmin(inr_a, inr_b);
-}
-
-// ch.contract(k, ...) for a k known only at run time, without indexing the
-// chain's arrays dynamically (which would put them in local memory).
-template <int O>
-__device__ __forceinline__ void contract_at(const Chain<O>& ch, int k, float wx, float wy,
-                                            float& ox, float& oy) {
-  ox = 0.0f;
-  oy = 0.0f;
-#pragma unroll
-  for (int j = 0; j < O + 2; ++j)
-    if (j == k) ch.contract(j, wx, wy, ox, oy);
-}
 
 // Blocked-test policy of the looped kernels: the segment's occluder bit
 // words, set bits lowest first.  Order 0 has one segment, the line of
@@ -252,175 +151,17 @@ struct ListedWalls {
   // segment's own walls (contrib's skips, without the 60-byte record).
   __device__ __forceinline__ unsigned testable(const unsigned* words, int k, int skip0,
                                                int skip1) const {
-    unsigned bits = __ldg(words + k) & solid[k];
-    if (skip0 >= 0 && (skip0 >> 5) == k) bits &= ~(1u << (skip0 & 31));
-    if (skip1 >= 0 && (skip1 >> 5) == k) bits &= ~(1u << (skip1 & 31));
-    return bits;
+    return drop_own(__ldg(words + k) & solid[k], k, skip0, skip1);
   }
 
-  // The redesigned blocked test of one candidate.  Returns whether the
-  // sequential sweep must still run (then blk, gbx, gby are untouched);
-  // otherwise blk (and, with the soft gradient, gbx, gby) hold exactly what
-  // the sequential sweep would leave, or values the validity cannot tell
-  // from them.
-  //
-  // Margin form (the value map, and hard logic with or without G): the
-  // sequential sweep keeps blk = pmax over the tests' margins m_k, from
-  // -inf, and the validity reads blk only through act(blk) = clip01_6(blk)
-  // (hard_sigmoid), clip(sigm(blk), 0, 1) (sigmoid) or blk > 0 (hard), as
-  // pmin(a_ol, 1 - act(blk)) or onb && !(blk > 0) && loss < tol.
-  // * Rejected tests (see rejected) have margins at or below the floor F,
-  //   where 1 - act is exactly 1 (hard: blk <= 0 is "not blocked").  If the
-  //   sweep's true maximum is above F it is a survivor's, and the survivors'
-  //   pmax (NaN included: a rejected margin is never NaN) is the same; if it
-  //   is at or below F, both maxima are, and give the same validity.
-  // * Gate exit: where a_ol, the activation of the folded on/loss margin, is
-  //   exactly 0 or NaN (hard: !onb or loss >= tol), pmin(a_ol, 1 - act(blk))
-  //   is 0 or NaN for every blk in [-inf, +inf] or NaN (pmin(0, x) is 0 for
-  //   x >= 0 and NaN for NaN; pmin(NaN, x) is NaN), and nan_to_num makes
-  //   both 0; the validity is 0 whatever the sweep gives.  A warp skips the
-  //   sweep when every lane's is (__all_sync), so no lane waits on another.
-  // * Saturation exit: act is non-decreasing in blk on [sat, +inf] with
-  //   act == 1 there (hard_sigmoid: 6; hard: a hit, 1; sigmoid: 19, held on
-  //   the card for every float32 at or above it), and blk only grows or turns
-  //   NaN; once blk >= sat, 1 - act(final blk) is 0 or NaN, so pmin(a_ol,
-  //   .) is 0 or NaN (a_ol >= 0 or NaN) and the validity is 0, as it is for
-  //   hard logic with blk > 0.  The warp leaves the sweep when every lane's
-  //   blk is there, checked after each word.
-  //
-  // Soft logic with the gradient (winner-only partials): the sequential
-  // sweep keeps (blk, gb) from (0, 0) with blk = pmax(blk, hit_k) and gb =
-  // max_sel(blk, hit_k, gb, gh_k), the hit in activation space (seg_vag).
-  // max_sel resets gb to gh_k at every strict increase, keeps it below, and
-  // averages at a tie, so with A the final maximum, gb depends only on the
-  // first test k* with hit A (or the initial (0, 0) if A == 0) and the
-  // later tests tied at A.  Ties are found on the hits themselves, not the
-  // margins (hsig's / 6 maps distinct margins onto one float).  Hence:
-  // * no NaN hit and no later tie at an A strictly inside (0, 1): gb =
-  //   gh_{k*}, one seg_vag and two contractions, formed as the sweep forms
-  //   them; blk = A;
-  // * A == 0 or A == 1: every tied test's hit has slope 0 (relu6's rule on
-  //   the rounded alpha x + 3; s (1 - s) == 0 for the sigmoid), so its
-  //   partials are exact zeros and gb = 0.  This rests, like the culling
-  //   tables' proofs (ops/cull_tables.py: an unlisted wall has a hit of 0
-  //   with zero partials), on the partials of a saturated test being
-  //   finite;
-  // * a NaN hit, or a tie inside (0, 1) not superseded by a later strict
-  //   increase: the sequential sweep runs (the only exact form of the
-  //   0.5/0.5 tie rule and of NaN's propagation).
-  // Rejected tests have a hit of exactly 0 with zero partials (the floors
-  // above), so they are ties of A == 0 or below A.
-  // * Gate exit: where on or loss_ok is exactly 0 or NaN, the validity
-  //   pmin(pmin(on, 1 - blk), loss_ok) is 0 or NaN (nan_to_num: 0) for every
-  //   blk, and its gradient min_sel(m1, loss_ok, min_sel(on, 1 - blk, g_on,
-  //   -gb), g_lo) is 0 for every (blk, gb) the sweep can leave: the
-  //   selected terms are g_on or g_lo of a saturated activation (zero, as
-  //   above) or gb of a saturated maximum (zero), averaged at ties, and a
-  //   NaN validity zeroes the gradient.  So (blk, gb) = (0, 0), the
-  //   sweep's start, gives the same bits; the warp skips the sweep when
-  //   every lane's gate is dead.
-  // * Saturation exit: once A == 1, later tests can only tie (zero
-  //   partials) or be NaN; with blk NaN or 1 the validity is 0 or NaN and
-  //   its gradient 0 by the same selection, so the warp leaves the sweep
-  //   when every lane's A is 1 (a NaN seen before still sends the lane to
-  //   the sequential sweep).  Off with the margin form's (sat = inf).
+  // The redesigned blocked test of one candidate (the sweep and its
+  // proof are at fast_sweep, power_map_common.cuh).
   template <bool G, int SOFT, int O>
   __device__ __forceinline__ bool fast_blocked(const WallRec* __restrict__ sw,
                                                const Chain<O>& ch, const int* id,
                                                const Scalars& s, bool gate_dead, float& blk,
                                                float& gbx, float& gby) const {
-    bool gate_exit = (features & kGateExit) != 0;  // uniform: the whole warp votes or none
-    if constexpr (SOFT != SOFT_NONE && G) {
-      if (gate_exit && __all_sync(vote, gate_dead)) return false;
-      float A = 0.0f;
-      int wseg = 0, wwall = 0;
-      bool tie = false, nan = false, done = false;
-      bool sat_exit = sat < INFINITY;  // uniform, as gate_exit
-#pragma unroll
-      for (int seg = 0; seg <= O; ++seg) {
-        if (done) break;
-        int skip0 = seg == 0 ? -1 : id[seg - 1];
-        int skip1 = seg == O ? -1 : id[seg];
-        float cx = ch.x[seg], cy = ch.y[seg], dx = ch.x[seg + 1], dy = ch.y[seg + 1];
-        const unsigned* words = words_of<O>(seg, id);
-        for (int k = 0; k < NW; ++k) {
-          unsigned bits = testable(words, k, skip0, skip1);
-          while (bits) {
-            int wi = 32 * k + __ffs(bits) - 1;
-            bits &= bits - 1u;
-            float num_a, num_b, den;
-            test_terms(sv[wi], cx, cy, dx, dy, num_a, num_b, den);
-            if (rejected(num_a, num_b, den, tlo, thi)) continue;
-            float hit = hit_of<SOFT>(num_a, num_b, den, s.alpha);
-            if (hit > A) {
-              A = hit;
-              wseg = seg;
-              wwall = wi;
-              tie = false;
-            } else if (!(hit < A)) {
-              if (hit != hit) {
-                nan = true;
-              } else if (A > 0.0f && A < 1.0f) {
-                tie = true;
-              }
-            }
-          }
-          if (sat_exit && __all_sync(vote, A == 1.0f)) {
-            done = true;
-            break;
-          }
-        }
-      }
-      if (nan || tie) return true;
-      blk = A;
-      if (A > 0.0f && A < 1.0f) {
-        float cx = ch.x[0], cy = ch.y[0], dx = ch.x[1], dy = ch.y[1];
-#pragma unroll
-        for (int seg = 1; seg <= O; ++seg) {
-          if (seg == wseg) {
-            cx = ch.x[seg];
-            cy = ch.y[seg];
-            dx = ch.x[seg + 1];
-            dy = ch.y[seg + 1];
-          }
-        }
-        float dcx, dcy, ddx, ddy;
-        seg_vag<SOFT>(sw[wwall], cx, cy, dx, dy, s.alpha, dcx, dcy, ddx, ddy);
-        float h0x, h0y, h1x, h1y;
-        contract_at<O>(ch, wseg, dcx, dcy, h0x, h0y);
-        contract_at<O>(ch, wseg + 1, ddx, ddy, h1x, h1y);
-        gbx = h0x + h1x;
-        gby = h0y + h1y;
-      }
-      return false;
-    } else {
-      if (gate_exit && __all_sync(vote, gate_dead)) return false;
-      bool done = false;
-#pragma unroll
-      for (int seg = 0; seg <= O; ++seg) {
-        if (done) break;
-        int skip0 = seg == 0 ? -1 : id[seg - 1];
-        int skip1 = seg == O ? -1 : id[seg];
-        float cx = ch.x[seg], cy = ch.y[seg], dx = ch.x[seg + 1], dy = ch.y[seg + 1];
-        const unsigned* words = words_of<O>(seg, id);
-        for (int k = 0; k < NW; ++k) {
-          unsigned bits = testable(words, k, skip0, skip1);
-          while (bits) {
-            int wi = 32 * k + __ffs(bits) - 1;
-            bits &= bits - 1u;
-            float num_a, num_b, den;
-            test_terms(sv[wi], cx, cy, dx, dy, num_a, num_b, den);
-            if (!rejected(num_a, num_b, den, tlo, thi))
-              blk = pmax(blk, margin_of<SOFT>(num_a, num_b, den, s.alpha));
-          }
-          if (__all_sync(vote, blk >= sat)) {
-            done = true;
-            break;
-          }
-        }
-      }
-      return false;
-    }
+    return fast_sweep<G, SOFT, O>(*this, sw, ch, id, s, gate_dead, blk, gbx, gby);
   }
 };
 
@@ -617,27 +358,6 @@ __global__ void __launch_bounds__(LP_MAX_THREADS)
   }
 }
 
-// Counts the float32 values z in the bit range [lo, hi] where the kernels'
-// sigmoid breaks a band the redesigned sweep relies on: test 0, 1 -
-// clip(sigm(z), 0, 1) != 1 (value floor); test 1, sigm(z) != 0 (gradient
-// floor); test 2, 1 - clip(sigm(z), 0, 1) != 0 (saturation).
-__global__ void sigmoid_band_kernel(unsigned lo, unsigned hi, int test,
-                                    unsigned* __restrict__ fails) {
-  unsigned n = hi - lo + 1u;
-  unsigned stride = gridDim.x * blockDim.x;
-  unsigned bad = 0u;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    unsigned bits = lo + i;
-    float z;
-    memcpy(&z, &bits, sizeof z);
-    float sg = sigm(z);
-    float comp = 1.0f - pmin(pmax(sg, 0.0f), 1.0f);
-    bool ok = test == 0 ? comp == 1.0f : (test == 1 ? sg == 0.0f : comp == 0.0f);
-    bad += ok ? 0u : 1u;
-  }
-  if (bad) atomicAdd(fails, bad);
-}
-
 template <bool G, int SOFT, bool FAST>
 int launch_order(int max_order, int T, dim3 grid, dim3 block, cudaStream_t stream,
                  const float* px, const float* py, int rows, int cols, const float* tx,
@@ -808,15 +528,7 @@ int power_map_looped_vag_seq(LP_ARGS, float* gout, void* stream) {
 // for tests 0 and 1 (bound < 0), every z >= bound for test 2 (bound > 0),
 // infinities included.
 int sigmoid_band_probe(float bound, int test, unsigned* fails, void* stream) {
-  if (test < 0 || test > 2 || !(test == 2 ? bound > 0.0f : bound < 0.0f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  unsigned bits;
-  memcpy(&bits, &bound, sizeof bits);
-  unsigned hi = test == 2 ? 0x7f800000u : 0xff800000u;  // +inf, -inf
-  cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sigmoid_band_kernel<<<1024, 256, 0, st>>>(bits, hi, test, fails);
-  return static_cast<int>(cudaGetLastError());
+  return sigmoid_band_probe_launch(bound, test, fails, stream);
 }
 
 }  // extern "C"

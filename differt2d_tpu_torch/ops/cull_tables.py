@@ -93,10 +93,16 @@ def _span_covered(starts, ends, span_lo, span_hi):
     return ~gap & (reach[..., -1] >= span_hi)
 
 
+_FLT_MIN = 2.0 ** -126
+"""Least normal float32: a wall whose squared length, as the kernels form
+it, falls below it is listed everywhere (:func:`_shadow_geometry`)."""
+
+
 def _shadow_geometry(walls32, kind, tx, patch, alpha, approx, sigmoid, tol):
     """Bounce-locus boxes ``llo/lhi`` (band-dilated walls), occluder boxes
     ``olo/ohi`` (patched, tol- and band-dilated walls), the occluder mask,
-    the hull growth factors and the ``un == 0`` hazard gate ``hz_free``.
+    the walls too short for the boxes (``short``, listed everywhere), the
+    hull growth factors and the ``un == 0`` hazard gate ``hz_free``.
 
     Where a bounce's denominator ``(q - image) . n`` is exactly 0 the
     kernels pin ``b = q``, off the wall's locus; the outgoing segment then
@@ -131,7 +137,22 @@ def _shadow_geometry(walls32, kind, tx, patch, alpha, approx, sigmoid, tol):
     ob = pb + ext * dp
     olo = torch.minimum(oa, ob) - abs_pad
     ohi = torch.maximum(oa, ob) + abs_pad
-    occ_ok = (kind.to(torch.int32) != KIND_VERTEX) & (_sum2(d * d) > 0.0)
+    # A wall blocks unless it is a vertex or has a == b: a wall whose |d|^2
+    # underflows to 0 still has a nonzero den in its blocked tests.
+    occ_ok = (kind.to(torch.int32) != KIND_VERTEX) & ((d[:, 0] != 0.0) | (d[:, 1] != 0.0))
+    # Walls too short for the boxes: |d|^2 or |dp|^2, formed as the kernels
+    # form them, is not a normal float32.  As a bounce: the on-object test
+    # divides (b - a) . d by |d|^2, by 1 where it underflows to 0, and with
+    # a subnormal |d|^2 loses the relative accuracy that the locus box's
+    # relative dilation (band + 0.01) covers, so bounces far off the box pass
+    # it.  As an occluder: a blocked test's den and num_b are sums of
+    # products of dp's components with O(1) differences, which lose precision
+    # where those products leave the normal range.  Above the cut both tests
+    # keep float32's relative accuracy and the boxes hold (up to nearly
+    # collinear segments, ROADMAP open check 1), and the tables are the JAX
+    # package's.  Such walls are listed for every segment, and the segments
+    # that end on them list every wall.
+    short = occ_ok & ((_sum2(d * d) < _FLT_MIN) | (_sum2(dp * dp) < _FLT_MIN))
 
     z_need = _SIGMOID_Z0 if (approx and sigmoid) else _HARD_Z
     tol_f = _f32(0.01 if tol is None else tol, dev)
@@ -150,7 +171,7 @@ def _shadow_geometry(walls32, kind, tx, patch, alpha, approx, sigmoid, tol):
     hz_free = hz_free & ~torch.any(wall_thru_tx & occ_ok)
     return {
         "llo": llo, "lhi": lhi, "olo": olo, "ohi": ohi, "occ_ok": occ_ok,
-        "ext": ext, "abs_pad": abs_pad, "hz_free": hz_free,
+        "short": short, "ext": ext, "abs_pad": abs_pad, "hz_free": hz_free,
     }
 
 
@@ -543,7 +564,7 @@ def _hull_mask(geo, hlo, hhi):
         | (ohi[:, 1] < glo[..., 1][..., None])
         | (olo[:, 1] > ghi[..., 1][..., None])
     )
-    return overlap & geo["occ_ok"]
+    return (overlap | geo["short"]) & geo["occ_ok"]
 
 
 def first_masks(geo, tx) -> torch.Tensor:
@@ -554,7 +575,8 @@ def first_masks(geo, tx) -> torch.Tensor:
     h0lo = torch.minimum(tx32[None, :], geo["llo"])
     h0hi = torch.maximum(tx32[None, :], geo["lhi"])
     rng = torch.arange(W, device=tx32.device)
-    return _hull_mask(geo, h0lo, h0hi) & (rng[None, :] != rng[:, None])
+    mask = _hull_mask(geo, h0lo, h0hi) | geo["short"][:, None]
+    return mask & geo["occ_ok"][None, :] & (rng[None, :] != rng[:, None])
 
 
 def last_masks(geo, x0, x1, y0, y1) -> torch.Tensor:
@@ -566,7 +588,8 @@ def last_masks(geo, x0, x1, y0, y1) -> torch.Tensor:
     hllo = torch.minimum(tlo[:, None, :], geo["llo"][None, :, :])
     hlhi = torch.maximum(thi[:, None, :], geo["lhi"][None, :, :])
     rng = torch.arange(W, device=x0.device)
-    return _hull_mask(geo, hllo, hlhi) & (rng[None, :] != rng[:, None])[None]
+    mask = _hull_mask(geo, hllo, hlhi) | geo["short"][None, :, None]
+    return mask & geo["occ_ok"] & (rng[None, :] != rng[:, None])[None]
 
 
 def mid_masks(geo, upstream=slice(None)) -> torch.Tensor:
@@ -584,7 +607,9 @@ def mid_masks(geo, upstream=slice(None)) -> torch.Tensor:
     up = rng[upstream]
     hlo = torch.minimum(llo[up][:, None, :], llo[None, :, :])
     hhi = torch.maximum(lhi[up][:, None, :], lhi[None, :, :])
-    mask = (_hull_mask(geo, hlo, hhi) & (rng[None, None, :] != up[:, None, None])
+    short = geo["short"]
+    mask = _hull_mask(geo, hlo, hhi) | short[up][:, None, None] | short[None, :, None]
+    mask = (mask & geo["occ_ok"] & (rng[None, None, :] != up[:, None, None])
             & (rng[None, None, :] != rng[None, :, None]))
     return torch.where(geo["hz_free"], mask, torch.ones_like(mask))
 

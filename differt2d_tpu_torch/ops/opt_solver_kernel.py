@@ -4,7 +4,11 @@ One hand-written kernel in ``csrc/opt_solver.cu``, ``opt_solver_value``,
 replaces the Pallas kernel
 ``differt2d_tpu/ops/pallas_solver.py::build_opt_order1_kernel`` (B6): per
 pixel and order-1 candidate, an adam solve of the bounce's wall parameter,
-then the validity and power of the path.  :func:`solver_map` is the route
+then the validity and power of the path.  Its divisions by a shared divisor
+go through that divisor's reciprocal, exactly (``div_by`` in the source);
+the kernel as it was before that redesign is exported beside it as
+``opt_solver_value_seq`` (:func:`twin_value`), its bitwise reference, for
+checks only: the dispatch never calls it.  :func:`solver_map` is the route
 of ``_opt_solver_map`` (``pallas_kernels.py:3831-3921``): the line-of-sight
 group through the unrolled kernel (``power_map_value``, B1), the order-1
 group through this one, each candidate's initial parameter drawn from the
@@ -13,7 +17,8 @@ request's key as the JAX package draws it.
 :func:`plain_opt_value` is the kernel's plain PyTorch version (the eager
 solve of :mod:`differt2d_tpu_torch.eager`).  :func:`value` takes it only for
 tensors that lie on the CPU; for CUDA tensors it launches the kernel or
-raises.  :data:`LAUNCHES` counts the launches (one per transmitter).
+raises.  :data:`LAUNCHES` counts the launches (one per transmitter),
+:data:`TWIN_LAUNCHES` the twin's.
 :class:`SolverMapFunction` makes the map differentiable: the kernels
 compute the forward pass and the eager solve's VJP the backward, as
 :class:`~differt2d_tpu_torch.ops.power_map_kernel.PowerMapFunction` does.
@@ -40,11 +45,15 @@ OBJECTIVES = {"fermat": 0, "mpt": 1}
 
 LAUNCHES = {"opt_solver_value": 0}
 """Launches of the kernel since the process started (or was reset)."""
+TWIN_LAUNCHES = {"opt_solver_value_seq": 0}
+"""Launches of the sequential twin (:func:`twin_value`), which only checks
+call."""
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TWIN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def kernel_caps_reason(num_walls: int, max_order: int) -> Optional[str]:
@@ -150,11 +159,14 @@ _P = ctypes.c_void_p
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.opt_solver_value.argtypes = [
-        _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I,
-        _F, _F, _F, _F, _F, _I, _P, _P,
-    ]
-    lib.opt_solver_value.restype = _I
+    for name in ("opt_solver_value", "opt_solver_value_seq"):
+        getattr(lib, name).argtypes = [
+            _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
+            _F, _F, _F, _F, _F, _I, _P, _P,
+        ]
+        getattr(lib, name).restype = _I
+    lib.opt_solver_occupancy.argtypes = [_I, _I, _I, _I, _P]
+    lib.opt_solver_occupancy.restype = _I
 
 
 def load_library() -> ctypes.CDLL:
@@ -167,11 +179,27 @@ def value(px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, *,
     """The order-1 candidates' map ``[P]`` through ``opt_solver_value``
     (CUDA tensors, one launch per transmitter) or its plain version (CPU
     tensors)."""
-    if px.device.type == "cpu":
+    if power_map_kernel._device_kind(px, "opt_solver_value") == "cpu":
         return plain_opt_value(px, py, txs, walls, kind, phi, scalars, inputs)
-    if px.device.type != "cuda":
-        msg = f"opt_solver_value runs on CUDA or CPU tensors, got {px.device}"
-        raise ValueError(msg)
+    return _launch("opt_solver_value", px, py, txs, walls, kind, phi, scalars, inputs,
+                   approx, sigmoid, LAUNCHES)
+
+
+def twin_value(px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, *,
+               approx: bool, sigmoid: bool) -> torch.Tensor:
+    """:func:`value` through ``opt_solver_value_seq``, the kernel before the
+    redesign, which ``opt_solver_value`` must equal bit for bit (CUDA
+    tensors; the plain version on the CPU).  For checks only."""
+    if power_map_kernel._device_kind(px, "opt_solver_value_seq") == "cpu":
+        return plain_opt_value(px, py, txs, walls, kind, phi, scalars, inputs)
+    return _launch("opt_solver_value_seq", px, py, txs, walls, kind, phi, scalars, inputs,
+                   approx, sigmoid, TWIN_LAUNCHES)
+
+
+def _launch(name, px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, approx,
+            sigmoid, counts) -> torch.Tensor:
+    """The map through kernel ``name`` on CUDA tensors, one launch per
+    transmitter."""
     out = torch.zeros_like(px)
     if inputs.cand is None or px.numel() == 0:
         return out
@@ -179,7 +207,7 @@ def value(px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, *,
     if cap is not None:
         raise ValueError(cap)
     sinp, cosp = torch.sin(phi).contiguous(), torch.cos(phi).contiguous()
-    for name, t, dtype in (
+    for arg, t, dtype in (
         ("px", px, torch.float32), ("py", py, torch.float32),
         ("txs", txs, torch.float32), ("walls", walls, torch.float32),
         ("kind", kind, torch.int32), ("phi", phi, torch.float32),
@@ -187,10 +215,10 @@ def value(px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, *,
         ("bc", inputs.bc, torch.float32),
     ):
         if t.device != px.device:
-            msg = f"{name} is on {t.device}, expected {px.device}"
+            msg = f"{arg} is on {t.device}, expected {px.device}"
             raise ValueError(msg)
         if t.dtype != dtype or not t.is_contiguous():
-            msg = f"{name} must be contiguous {dtype}, got {t.dtype}"
+            msg = f"{arg} must be contiguous {dtype}, got {t.dtype}"
             raise ValueError(msg)
     P = px.numel()
     if py.numel() != P or tuple(txs.shape[1:]) != (2,) or tuple(walls.shape[1:]) != (2, 2):
@@ -200,20 +228,32 @@ def value(px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, *,
         msg = f"the kernel takes P < 2**31 pixels, got {P}"
         raise ValueError(msg)
     host = [_host_float(v) for v in scalars]
+    scratch = torch.empty(4 * (inputs.steps + 1), dtype=torch.float32, device=px.device)
     lib = load_library()
+    fn = getattr(lib, name)
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         for t in range(txs.shape[0]):
-            rc = lib.opt_solver_value(
+            rc = fn(
                 OBJECTIVES[inputs.objective], _soft_mode(approx, sigmoid), px.data_ptr(),
                 py.data_ptr(), P, txs[t].data_ptr(), walls.data_ptr(), kind.data_ptr(),
                 sinp.data_ptr(), cosp.data_ptr(), walls.shape[0], inputs.cand.data_ptr(),
                 inputs.x0.data_ptr(), inputs.cand.numel(), inputs.bc.data_ptr(), inputs.steps,
-                *host, int(t > 0), out.data_ptr(), stream,
+                scratch.data_ptr(), *host, int(t > 0), out.data_ptr(), stream,
             )
-            _check(rc, "opt_solver_value")
-            LAUNCHES["opt_solver_value"] += 1
+            _check(rc, name)
+            counts[name] += 1
     return out
+
+
+def occupancy(objective: str, soft_mode: int, fast: bool, num_walls: int) -> int:
+    """Resident blocks of 128 threads per SM of the solver kernel (the
+    redesign, or its twin) on the current device."""
+    blocks = ctypes.c_int(0)
+    _check(load_library().opt_solver_occupancy(OBJECTIVES[objective], soft_mode, int(fast),
+                                               num_walls, ctypes.byref(blocks)),
+           "opt_solver_occupancy")
+    return blocks.value
 
 
 def full_value(px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, *,

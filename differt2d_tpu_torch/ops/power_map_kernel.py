@@ -5,7 +5,12 @@ Pallas kernel ``differt2d_tpu/ops/pallas_kernels.py::build_power_map_kernel``:
 
 * ``power_map_value`` -- its ``mode="value"``: the map ``[P]``;
 * ``power_map_vag`` -- its ``mode="value_and_grad"``: the map and its
-  pixel gradient ``([P], [P, 2])``.
+  pixel gradient ``([P], [P, 2])``, through the looped kernels' redesigned
+  blocked sweep over all walls (rejection of clear misses without a
+  division with the bounds of :func:`rejection_bounds`, the winning wall's
+  partials only, warp-wide exits).  The same source exports the sweep as it
+  was, ``power_map_vag_seq`` (:func:`twin_value_and_grad`): the redesign's
+  bitwise reference, for checks only; the dispatch never calls it.
 
 Beside each is its plain PyTorch version (:func:`plain_value`,
 :func:`plain_value_and_grad`: the eager tracer of
@@ -26,6 +31,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -45,14 +51,18 @@ SOFT_NONE, SOFT_HARD, SOFT_SIGMOID = 0, 1, 2
 
 LAUNCHES = {"power_map_value": 0, "power_map_vag": 0}
 """Launches of each kernel since the process started (or was reset)."""
+TWIN_LAUNCHES = {"power_map_vag_seq": 0}
+"""Launches of the sequential-sweep twin (:func:`twin_value_and_grad`),
+which only checks call."""
 
 _INPUTS_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _INPUTS_CACHE_MAX = 64
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TWIN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def kernel_caps_reason(num_walls: int, max_order: int) -> Optional[str]:
@@ -136,6 +146,187 @@ def kernel_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> Kerne
     return cached_inputs("unrolled", groups, device, approx, sigmoid, make)
 
 
+# -- rejection bounds of the redesigned blocked sweep (power_map_vag, looped kernels) --
+
+SIGMOID_VALUE_FLOOR = -18.0
+"""Margin at and below which the kernels' ``1 - clip(sigm(m), 0, 1)`` is
+exactly 1 (``sigm(-18)`` is about 1.5e-8, under half an ulp of 1), held
+for every float32 at or below it by :func:`sigmoid_bands`."""
+SIGMOID_VAG_FLOOR = -89.0
+"""Margin at and below which the kernels' ``sigm(m)`` is exactly 0
+(``expf(89)`` overflows), held the same way: the value and gradient map's
+rejected tests must have a hit of exactly 0."""
+SIGMOID_SAT = 19.0
+"""Margin at and above which ``1 - clip(sigm(m), 0, 1)`` is exactly 0 (the
+value kernel's early exit), held the same way."""
+REJECT_MIN_DEN = 2.0 ** -90
+"""Least ``|den|`` the rejection test takes (keeps its products normal)."""
+_REJECT_SLACK = 2.0 ** -20
+"""Relative widening of the bounds on ``t``: covers the rounding of the
+product ``|den| * bound`` (2**-24) with room."""
+
+
+def _f32_key(x: np.ndarray) -> np.ndarray:
+    """Order-preserving int64 key of float32 values (-0 and +0 share 0)."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.int64)
+    return np.where(b >= 2**31, -(b - 2**31), b)
+
+
+def _f32_of_key(k) -> np.ndarray:
+    k = np.asarray(k, np.int64)
+    b = np.where(k < 0, (-k) + 2**31, k).astype(np.uint32)
+    return b.view(np.float32)
+
+
+def _last_true(pred, lo_key: int, hi_key: int) -> Optional[int]:
+    """Largest key in ``[lo_key, hi_key]`` where the monotone (true, then
+    false) ``pred`` of the float32 holds, or None."""
+    if not pred(_f32_of_key(lo_key)):
+        return None
+    lo, hi = lo_key, hi_key
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if pred(_f32_of_key(mid)):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def rejection_bounds(alpha: float, soft_mode: int, grad: bool, sigmoid_bands_ok: bool = True):
+    """``(tlo, thi, sat)`` of the redesigned kernels, as float32 numbers.
+
+    A blocked test whose parameter ``t = num / den`` (either of the two)
+    is at most ``tlo`` or at least ``thi`` has a margin at or below the
+    floor where its hit is exactly 0 (value: the map's ``1 - act`` is
+    exactly 1), so the kernels skip it without dividing; they decide it from
+    ``num`` and ``|den| * bound`` (:func:`rejects`).  The floors: hard logic,
+    a miss; ``hard_sigmoid``, margin 0; sigmoid, :data:`SIGMOID_VALUE_FLOOR`
+    or, with the gradient, :data:`SIGMOID_VAG_FLOOR` (only where
+    ``sigmoid_bands_ok``).  ``tlo`` is the largest float32 ``t`` whose
+    margin ``alpha * (t + 0.005) [+ 3]`` is at or below the floor,
+    computed in float32 as the kernels compute it, then widened by
+    :data:`_REJECT_SLACK`; ``thi`` likewise from ``alpha * (1.005 - t) [+
+    3]``.  A side that cannot be bounded is ``-inf`` / ``inf`` (no test is
+    rejected on it).  ``sat`` is the running margin at and above which the
+    value kernel's path is fully blocked (hit 1 for hard logic; 6 for
+    ``hard_sigmoid``; :data:`SIGMOID_SAT`), ``inf`` where unproven.
+    """
+    inf = float("inf")
+    f32 = np.float32
+    tol, one_tol = f32(0.005), f32(1.005)
+    if soft_mode == SOFT_NONE:
+        tlo = float(np.nextafter(-tol, f32(-inf)))
+        thi = float(np.nextafter(one_tol, f32(inf)))
+        return _widen(tlo, thi) + (1.0,)
+    a = f32(alpha)
+    hard = soft_mode == SOFT_HARD
+    if not (np.isfinite(a) and a > 0) or not (hard or sigmoid_bands_ok):
+        return -inf, inf, inf
+    floor = f32(0.0) if hard else f32(SIGMOID_VAG_FLOOR if grad else SIGMOID_VALUE_FLOOR)
+    three = f32(3.0) if hard else f32(0.0)
+
+    def lo_ok(t):
+        with np.errstate(over="ignore", invalid="ignore"):
+            return bool(f32(f32(a * f32(f32(t) + tol)) + three) <= floor)
+
+    def hi_ok(t):
+        with np.errstate(over="ignore", invalid="ignore"):
+            return bool(f32(f32(a * f32(one_tol - f32(t))) + three) <= floor)
+
+    kmax = int(_f32_key(np.float32(np.finfo(np.float32).max)))
+    klo = _last_true(lo_ok, -kmax, kmax)
+    # hi_ok is false, then true: search the last false, step one up.
+    khi = _last_true(lambda t: not hi_ok(t), -kmax, kmax)
+    tlo = -inf if klo is None else float(_f32_of_key(klo))
+    thi = inf if khi is None or khi == kmax else float(_f32_of_key(khi + 1))
+    sat = 6.0 if hard else SIGMOID_SAT
+    return _widen(tlo, thi) + (sat,)
+
+
+def _widen(tlo: float, thi: float) -> tuple:
+    """The bounds widened by :data:`_REJECT_SLACK`, rounded outwards to
+    float32; a side closer to 0 than 2**-20 (its products could leave the
+    normal range) is dropped."""
+    inf = float("inf")
+    out = []
+    for t, side in ((tlo, -1.0), (thi, 1.0)):
+        if not np.isfinite(t) or t * side < 2.0 ** -20:
+            out.append(side * inf)
+            continue
+        w = t * (1.0 + _REJECT_SLACK)
+        f = np.float32(w)
+        if float(f) * side < w * side:
+            f = np.nextafter(f, np.float32(side * inf))
+        out.append(float(f))
+    return tuple(out)
+
+
+def rejects(num_a, num_b, den, tlo: float, thi: float):
+    """The kernels' rejection test of a blocked test from its float32
+    ``num_a``, ``num_b`` and ``den`` (``seg_margin``'s): true only where
+    ``t_a`` or ``t_b``, divided as the kernels divide, is at most ``tlo``
+    or at least ``thi``.  ``t = s / d`` with ``s = num`` and ``d = den``,
+    or both negated where ``den < 0`` (the same quotient, rounded the
+    same); with ``d >= REJECT_MIN_DEN`` and finite ``s`` and ``d``,
+    ``s <= fl(d * tlo)`` implies ``s <= d * tlo / (1 - 2**-24) <= d *
+    tlo_unwidened`` exactly, hence ``fl(s / d) <= tlo_unwidened`` (division
+    rounds monotonically), and likewise for ``thi``."""
+    neg = den < 0
+    sa = torch.where(neg, -num_a, num_a)
+    sb = torch.where(neg, -num_b, num_b)
+    d = den.abs()
+    inf = float("inf")
+    ok = (d >= REJECT_MIN_DEN) & (d < inf) & (sa.abs() < inf) & (sb.abs() < inf)
+    lo = d * torch.tensor(tlo, dtype=torch.float32, device=den.device)
+    hi = d * torch.tensor(thi, dtype=torch.float32, device=den.device)
+    return ok & ((sa <= lo) | (sa >= hi) | (sb <= lo) | (sb >= hi))
+
+
+@functools.lru_cache(maxsize=64)
+def _bounds(alpha: float, soft_mode: int, grad: bool, bands_ok: bool) -> tuple:
+    return rejection_bounds(alpha, soft_mode, grad, bands_ok)
+
+
+GATE_EXIT = 1
+"""The kernels' ``features`` bit for the gate exits (``kGateExit``)."""
+
+_SIGMOID_BANDS: dict = {}
+
+
+def _band_fails(cache: dict, dev: torch.device, probe) -> tuple:
+    """Per band of :func:`sigmoid_bands`, the float32 values where the
+    sigmoid of the library whose ``sigmoid_band_probe`` is ``probe()``
+    breaks it on ``dev`` (about 3e9 values in all), once per device and
+    library (``cache``)."""
+    key = str(dev)
+    fails = cache.get(key)
+    if fails is None:
+        counts = torch.zeros(3, dtype=torch.int32, device=dev)
+        fn = probe()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for test, bound in enumerate((SIGMOID_VALUE_FLOOR, SIGMOID_VAG_FLOOR, SIGMOID_SAT)):
+                _check(fn(bound, test, counts[test:].data_ptr(), stream), "sigmoid_band_probe")
+        fails = tuple(counts.tolist())
+        cache[key] = fails
+    return fails
+
+
+def sigmoid_bands(device) -> bool:
+    """Whether the sigmoid of ``csrc/power_map.cu`` on ``device`` keeps,
+    for every float32 of each band, ``1 - clip(sigm(z), 0, 1) == 1`` for
+    ``z <= SIGMOID_VALUE_FLOOR``, ``sigm(z) == 0`` for ``z <=
+    SIGMOID_VAG_FLOOR`` and ``1 - clip(sigm(z), 0, 1) == 0`` for ``z >=
+    SIGMOID_SAT`` (``power_map_sigmoid_band_probe``).  Where they fail,
+    sigmoid gradient maps run without the rejection and the saturation exit
+    (:func:`rejection_bounds`).  True on the CPU, where the plain version
+    rejects nothing."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return True
+    return not any(_band_fails(_SIGMOID_BANDS, dev,
+                               lambda: load_library().power_map_sigmoid_band_probe))
 # -- plain versions -------------------------------------------------------------
 
 
@@ -162,11 +353,17 @@ _P = ctypes.c_void_p
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    common = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _F, _F, _F, _F, _F]
-    lib.power_map_value.argtypes = [*common, _P, _P]
+    common = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I]
+    scalars = [_F, _F, _F, _F, _F]
+    lib.power_map_value.argtypes = [*common, *scalars, _P, _P]
     lib.power_map_value.restype = _I
-    lib.power_map_vag.argtypes = [*common, _P, _P, _P]
-    lib.power_map_vag.restype = _I
+    for name in ("power_map_vag", "power_map_vag_seq"):
+        getattr(lib, name).argtypes = [*common, _F, _F, _F, *scalars, _P, _P, _P]
+        getattr(lib, name).restype = _I
+    lib.power_map_occupancy.argtypes = [_I, _I, _I, _I, _P]
+    lib.power_map_occupancy.restype = _I
+    lib.power_map_sigmoid_band_probe.argtypes = [_F, _I, _P, _P]
+    lib.power_map_sigmoid_band_probe.restype = _I
 
 
 def load_library() -> ctypes.CDLL:
@@ -208,11 +405,10 @@ def _launch_args(px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid
     if P >= 2**31:
         msg = f"the kernels take P < 2**31 pixels, got {P}"
         raise ValueError(msg)
-    host = [_host_float(v) for v in scalars]
     return [
         _soft_mode(approx, sigmoid), px.data_ptr(), py.data_ptr(), P,
         txs.data_ptr(), txs.shape[0], walls.data_ptr(), kind.data_ptr(),
-        phi.data_ptr(), W, inputs.cand.data_ptr(), inputs.num_candidates, *host,
+        phi.data_ptr(), W, inputs.cand.data_ptr(), inputs.num_candidates,
     ]
 
 
@@ -226,34 +422,31 @@ def value(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs, *,
           approx: bool, sigmoid: bool) -> torch.Tensor:
     """Value map ``[P]`` through ``power_map_value`` (CUDA tensors) or its
     plain version (CPU tensors)."""
-    if px.device.type == "cpu":
+    if _device_kind(px, "power_map_value") == "cpu":
         return plain_value(px, py, txs, walls, kind, phi, scalars, inputs)
-    if px.device.type != "cuda":
-        msg = f"power_map_value runs on CUDA or CPU tensors, got {px.device}"
-        raise ValueError(msg)
     args = _launch_args(px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid)
+    host = [_host_float(v) for v in scalars]
     out = torch.empty_like(px)
     if px.numel() == 0:
         return out
     lib = load_library()
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
-        rc = lib.power_map_value(*args, out.data_ptr(), stream)
+        rc = lib.power_map_value(*args, *host, out.data_ptr(), stream)
     _check(rc, "power_map_value")
     LAUNCHES["power_map_value"] += 1
     return out
 
 
-def value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs,
-                   *, approx: bool, sigmoid: bool):
-    """``(value[P], pixel_gradient[P, 2])`` through ``power_map_vag`` (CUDA
-    tensors) or its plain version (CPU tensors)."""
-    if px.device.type == "cpu":
-        return plain_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs)
-    if px.device.type != "cuda":
-        msg = f"power_map_vag runs on CUDA or CPU tensors, got {px.device}"
-        raise ValueError(msg)
+def _vag_launch(name, px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid,
+                counts):
+    """``(value, gradient)`` of ``power_map_vag`` or its twin ``name`` on
+    CUDA tensors; ``counts[name]`` counts the launch."""
     args = _launch_args(px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid)
+    host = [_host_float(v) for v in scalars]
+    mode = _soft_mode(approx, sigmoid)
+    tlo, thi, sat = _bounds(host[0], mode, True,
+                            bool(not sigmoid or sigmoid_bands(px.device)))
     out = torch.empty_like(px)
     gout = torch.empty(px.numel(), 2, dtype=px.dtype, device=px.device)
     if px.numel() == 0:
@@ -261,10 +454,51 @@ def value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs,
     lib = load_library()
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
-        rc = lib.power_map_vag(*args, out.data_ptr(), gout.data_ptr(), stream)
-    _check(rc, "power_map_vag")
-    LAUNCHES["power_map_vag"] += 1
+        rc = getattr(lib, name)(*args, tlo, thi, sat, *host, out.data_ptr(), gout.data_ptr(),
+                                stream)
+    _check(rc, name)
+    counts[name] += 1
     return out, gout
+
+
+def _device_kind(px, name: str) -> str:
+    """``"cpu"`` (the plain version's tensors) or ``"cuda"``; raises for
+    any other device."""
+    if px.device.type not in ("cpu", "cuda"):
+        msg = f"{name} runs on CUDA or CPU tensors, got {px.device}"
+        raise ValueError(msg)
+    return px.device.type
+
+
+def value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs,
+                   *, approx: bool, sigmoid: bool):
+    """``(value[P], pixel_gradient[P, 2])`` through ``power_map_vag`` (CUDA
+    tensors) or its plain version (CPU tensors)."""
+    if _device_kind(px, "power_map_vag") == "cpu":
+        return plain_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs)
+    return _vag_launch("power_map_vag", px, py, txs, walls, kind, phi, scalars, inputs,
+                       approx, sigmoid, LAUNCHES)
+
+
+def twin_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs,
+                        *, approx: bool, sigmoid: bool):
+    """:func:`value_and_grad` through ``power_map_vag_seq``, the sequential
+    sweep that the redesigned kernel must equal bit for bit (CUDA tensors;
+    the plain version on the CPU).  For checks only: the dispatch never
+    calls it."""
+    if _device_kind(px, "power_map_vag_seq") == "cpu":
+        return plain_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs)
+    return _vag_launch("power_map_vag_seq", px, py, txs, walls, kind, phi, scalars, inputs,
+                       approx, sigmoid, TWIN_LAUNCHES)
+
+
+def occupancy(grad: bool, soft_mode: int, fast: bool, num_walls: int) -> int:
+    """Resident blocks per SM of a kernel of ``csrc/power_map.cu`` on the
+    current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = ctypes.c_int(0)
+    _check(load_library().power_map_occupancy(int(grad), soft_mode, int(fast), num_walls,
+                                              ctypes.byref(blocks)), "power_map_occupancy")
+    return blocks.value
 
 
 class PowerMapFunction(torch.autograd.Function):

@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Optional
 
 import numpy as np
@@ -46,12 +45,23 @@ import torch
 
 from .. import eager, logic
 from . import _build, cull_tables
-from .power_map_kernel import (
+from .power_map_kernel import (  # noqa: F401 (the rejection's names are this module's too)
+    _REJECT_SLACK,
+    GATE_EXIT,
+    REJECT_MIN_DEN,
+    SIGMOID_SAT,
+    SIGMOID_VAG_FLOOR,
+    SIGMOID_VALUE_FLOOR,
+    _band_fails,
+    _bounds,
     _check,
+    _device_kind,
     _host_float,
     _soft_mode,
     cached_inputs,
     eager_backward,
+    rejection_bounds,
+    rejects,
     request_tensors,
     tracked_scalars,
 )
@@ -110,145 +120,6 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
     for name in TWIN_LAUNCHES:
         TWIN_LAUNCHES[name] = 0
-
-
-# -- rejection bounds of the redesigned blocked sweep --------------------------------
-
-SIGMOID_VALUE_FLOOR = -18.0
-"""Margin at and below which the kernels' ``1 - clip(sigm(m), 0, 1)`` is
-exactly 1 (``sigm(-18)`` is about 1.5e-8, under half an ulp of 1), held
-for every float32 at or below it by :func:`sigmoid_bands`."""
-SIGMOID_VAG_FLOOR = -89.0
-"""Margin at and below which the kernels' ``sigm(m)`` is exactly 0
-(``expf(89)`` overflows), held the same way: the value and gradient map's
-rejected tests must have a hit of exactly 0."""
-SIGMOID_SAT = 19.0
-"""Margin at and above which ``1 - clip(sigm(m), 0, 1)`` is exactly 0 (the
-value kernel's early exit), held the same way."""
-REJECT_MIN_DEN = 2.0 ** -90
-"""Least ``|den|`` the rejection test takes (keeps its products normal)."""
-_REJECT_SLACK = 2.0 ** -20
-"""Relative widening of the bounds on ``t``: covers the rounding of the
-product ``|den| * bound`` (2**-24) with room."""
-
-
-def _f32_key(x: np.ndarray) -> np.ndarray:
-    """Order-preserving int64 key of float32 values (-0 and +0 share 0)."""
-    b = np.asarray(x, np.float32).view(np.uint32).astype(np.int64)
-    return np.where(b >= 2**31, -(b - 2**31), b)
-
-
-def _f32_of_key(k) -> np.ndarray:
-    k = np.asarray(k, np.int64)
-    b = np.where(k < 0, (-k) + 2**31, k).astype(np.uint32)
-    return b.view(np.float32)
-
-
-def _last_true(pred, lo_key: int, hi_key: int) -> Optional[int]:
-    """Largest key in ``[lo_key, hi_key]`` where the monotone (true, then
-    false) ``pred`` of the float32 holds, or None."""
-    if not pred(_f32_of_key(lo_key)):
-        return None
-    lo, hi = lo_key, hi_key
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        if pred(_f32_of_key(mid)):
-            lo = mid
-        else:
-            hi = mid - 1
-    return lo
-
-
-def rejection_bounds(alpha: float, soft_mode: int, grad: bool, sigmoid_bands_ok: bool = True):
-    """``(tlo, thi, sat)`` of the redesigned kernels, as float32 numbers.
-
-    A blocked test whose parameter ``t = num / den`` (either of the two)
-    is at most ``tlo`` or at least ``thi`` has a margin at or below the
-    floor where its hit is exactly 0 (value: the map's ``1 - act`` is
-    exactly 1), so the kernels skip it without dividing; they decide it from
-    ``num`` and ``|den| * bound`` (:func:`rejects`).  The floors: hard logic,
-    a miss; ``hard_sigmoid``, margin 0; sigmoid, :data:`SIGMOID_VALUE_FLOOR`
-    or, with the gradient, :data:`SIGMOID_VAG_FLOOR` (only where
-    ``sigmoid_bands_ok``).  ``tlo`` is the largest float32 ``t`` whose
-    margin ``alpha * (t + 0.005) [+ 3]`` is at or below the floor,
-    computed in float32 as the kernels compute it, then widened by
-    :data:`_REJECT_SLACK`; ``thi`` likewise from ``alpha * (1.005 - t) [+
-    3]``.  A side that cannot be bounded is ``-inf`` / ``inf`` (no test is
-    rejected on it).  ``sat`` is the running margin at and above which the
-    value kernel's path is fully blocked (hit 1 for hard logic; 6 for
-    ``hard_sigmoid``; :data:`SIGMOID_SAT`), ``inf`` where unproven.
-    """
-    from .power_map_kernel import SOFT_HARD, SOFT_NONE
-
-    inf = float("inf")
-    f32 = np.float32
-    tol, one_tol = f32(0.005), f32(1.005)
-    if soft_mode == SOFT_NONE:
-        tlo = float(np.nextafter(-tol, f32(-inf)))
-        thi = float(np.nextafter(one_tol, f32(inf)))
-        return _widen(tlo, thi) + (1.0,)
-    a = f32(alpha)
-    hard = soft_mode == SOFT_HARD
-    if not (np.isfinite(a) and a > 0) or not (hard or sigmoid_bands_ok):
-        return -inf, inf, inf
-    floor = f32(0.0) if hard else f32(SIGMOID_VAG_FLOOR if grad else SIGMOID_VALUE_FLOOR)
-    three = f32(3.0) if hard else f32(0.0)
-
-    def lo_ok(t):
-        with np.errstate(over="ignore", invalid="ignore"):
-            return bool(f32(f32(a * f32(f32(t) + tol)) + three) <= floor)
-
-    def hi_ok(t):
-        with np.errstate(over="ignore", invalid="ignore"):
-            return bool(f32(f32(a * f32(one_tol - f32(t))) + three) <= floor)
-
-    kmax = int(_f32_key(np.float32(np.finfo(np.float32).max)))
-    klo = _last_true(lo_ok, -kmax, kmax)
-    # hi_ok is false, then true: search the last false, step one up.
-    khi = _last_true(lambda t: not hi_ok(t), -kmax, kmax)
-    tlo = -inf if klo is None else float(_f32_of_key(klo))
-    thi = inf if khi is None or khi == kmax else float(_f32_of_key(khi + 1))
-    sat = 6.0 if hard else SIGMOID_SAT
-    return _widen(tlo, thi) + (sat,)
-
-
-def _widen(tlo: float, thi: float) -> tuple:
-    """The bounds widened by :data:`_REJECT_SLACK`, rounded outwards to
-    float32; a side closer to 0 than 2**-20 (its products could leave the
-    normal range) is dropped."""
-    inf = float("inf")
-    out = []
-    for t, side in ((tlo, -1.0), (thi, 1.0)):
-        if not np.isfinite(t) or t * side < 2.0 ** -20:
-            out.append(side * inf)
-            continue
-        w = t * (1.0 + _REJECT_SLACK)
-        f = np.float32(w)
-        if float(f) * side < w * side:
-            f = np.nextafter(f, np.float32(side * inf))
-        out.append(float(f))
-    return tuple(out)
-
-
-def rejects(num_a, num_b, den, tlo: float, thi: float):
-    """The kernels' rejection test of a blocked test from its float32
-    ``num_a``, ``num_b`` and ``den`` (``seg_margin``'s): true only where
-    ``t_a`` or ``t_b``, divided as the kernels divide, is at most ``tlo``
-    or at least ``thi``.  ``t = s / d`` with ``s = num`` and ``d = den``,
-    or both negated where ``den < 0`` (the same quotient, rounded the
-    same); with ``d >= REJECT_MIN_DEN`` and finite ``s`` and ``d``,
-    ``s <= fl(d * tlo)`` implies ``s <= d * tlo / (1 - 2**-24) <= d *
-    tlo_unwidened`` exactly, hence ``fl(s / d) <= tlo_unwidened`` (division
-    rounds monotonically), and likewise for ``thi``."""
-    neg = den < 0
-    sa = torch.where(neg, -num_a, num_a)
-    sb = torch.where(neg, -num_b, num_b)
-    d = den.abs()
-    inf = float("inf")
-    ok = (d >= REJECT_MIN_DEN) & (d < inf) & (sa.abs() < inf) & (sb.abs() < inf)
-    lo = d * torch.tensor(tlo, dtype=torch.float32, device=den.device)
-    hi = d * torch.tensor(thi, dtype=torch.float32, device=den.device)
-    return ok & ((sa <= lo) | (sa >= hi) | (sb <= lo) | (sb >= hi))
 
 
 def kernel_caps_reason(num_walls: int, max_order: int) -> Optional[str]:
@@ -750,13 +621,6 @@ def _groups_args(inputs: LoopedInputs, tp: TxPlan):
     return ptrs, sizes
 
 
-@functools.lru_cache(maxsize=64)
-def _bounds(alpha: float, soft_mode: int, grad: bool, bands_ok: bool) -> tuple:
-    return rejection_bounds(alpha, soft_mode, grad, bands_ok)
-
-
-GATE_EXIT = 1
-"""The kernels' ``features`` bit for the gate exits (``kGateExit``)."""
 ABLATIONS = ("rejection", "saturation", "gate", "order")
 """Parts of the redesigned sweep that :func:`_launch` can switch off, for
 measuring each one's share only (``looped_tuning --census``): the
@@ -807,13 +671,6 @@ def _launch(name, px, py, walls, kind, phi, scalars, inputs, plan, approx, sigmo
                 args.append(gout.data_ptr())
             _check(fn(*args, stream), name)
             counts[name] += 1
-
-
-def _device_kind(px, name: str) -> str:
-    if px.device.type not in ("cpu", "cuda"):
-        msg = f"{name} runs on CUDA or CPU tensors, got {px.device}"
-        raise ValueError(msg)
-    return px.device.type
 
 
 def value(px, py, walls, kind, phi, scalars, inputs: LoopedInputs, plan: Plan, *,
@@ -911,21 +768,9 @@ def sigmoid_saturates(device) -> bool:
 
 def _sigmoid_band_fails(dev: torch.device) -> tuple:
     """Per band of :func:`sigmoid_bands`, the float32 values where the
-    kernels' sigmoid on ``dev`` breaks it (``sigmoid_band_probe``, about
-    3e9 values in all, once per device)."""
-    key = str(dev)
-    fails = _SIGMOID_BANDS.get(key)
-    if fails is None:
-        counts = torch.zeros(3, dtype=torch.int32, device=dev)
-        lib = load_library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for test, bound in enumerate((SIGMOID_VALUE_FLOOR, SIGMOID_VAG_FLOOR, SIGMOID_SAT)):
-                _check(lib.sigmoid_band_probe(bound, test, counts[test:].data_ptr(), stream),
-                       "sigmoid_band_probe")
-        fails = tuple(counts.tolist())
-        _SIGMOID_BANDS[key] = fails
-    return fails
+    looped kernels' sigmoid on ``dev`` breaks it (``sigmoid_band_probe``,
+    about 3e9 values in all, once per device)."""
+    return _band_fails(_SIGMOID_BANDS, dev, lambda: load_library().sigmoid_band_probe)
 
 
 def sigmoid_bands(device) -> bool:

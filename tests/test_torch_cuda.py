@@ -327,3 +327,143 @@ def test_solver_autograd_through_the_kernel(cuda):
     assert osk.LAUNCHES["opt_solver_value"] > before
     for g, r in zip(got, grads("torch")):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5)
+
+
+# -- the redesigned solver and gradient kernels against their twins -----------------------
+
+import math  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+
+def _short_walls(dev):
+    """The basic scene with walls of lengths 2^-100, 2^-115 and 2^-124 at the
+    origin (blocked tests with |den| between 2^-126 and 2^-90, below the
+    rejection's least) and one of zero length at (1, 1)."""
+    basic = Scene.basic_scene(device=dev)
+    w = basic.walls.cpu().numpy()
+    short = np.array([[[0, 0], [2.0 ** -100, 2.0 ** -101]], [[0, 0], [2.0 ** -115, 2.0 ** -116]],
+                      [[0, 0], [2.0 ** -124, 2.0 ** -125]], [[1, 1], [1, 1]]], np.float32)
+    return Scene.from_arrays(np.concatenate([w, short]),
+                             transmitters={"tx": basic.transmitters["tx"].cpu().numpy()},
+                             receivers={"rx": [0.5, 0.5]}, device=dev)
+
+
+def _solver_scene(name, dev):
+    square = Scene.square_scene(device=dev)
+    if name.startswith("ris"):
+        scene = square.add_ris([[0.5, 0.3], [0.5, 0.7]], phi=math.pi / 4)
+        return scene.add_vertex([0.25, 0.75]) if name == "ris_vertex" else scene
+    if name == "two_tx":
+        return square.update_transmitters(tx2=[0.8, 0.3])
+    if name == "zero_wall":
+        w = square.walls.cpu().numpy()
+        return Scene.from_arrays(
+            np.concatenate([w, np.array([[[0.5, 0.5], [0.5, 0.5]]], np.float32)]),
+            transmitters={"tx": square.transmitters["tx"].cpu().numpy()},
+            receivers={"rx": [0.5, 0.5]}, device=dev)
+    return square
+
+
+_SOLVER_TWIN_CASES = {  # scene, options, candidates (None: the request's)
+    "ris_mpt": ("ris", dict(order=1, solver="mpt", steps=1000,
+                            filter_objects=lambda o: o.kind == 1), None),
+    "fermat": ("square", dict(order=1, solver="fermat", steps=100), None),
+    "mpt": ("square", dict(order=1, solver="mpt", steps=100), None),
+    "fermat_los": ("square", dict(min_order=0, max_order=1, solver="fermat", steps=100), None),
+    "mpt_hard": ("square", dict(order=1, solver="mpt", steps=100, approx=False), None),
+    "fermat_sigmoid": ("square", dict(min_order=0, max_order=1, solver="fermat", steps=100,
+                                      function=sigmoid), None),
+    "two_tx": ("two_tx", dict(order=1, solver="fermat", steps=100), None),
+    "tx_grid": ("square", dict(order=1, solver="fermat", steps=100, on_transmitters=True),
+                None),
+    "ris_vertex": ("ris_vertex", dict(order=1, solver="mpt", steps=300),
+                   {1: np.array([[4]], np.int32)}),
+    "zero_wall": ("zero_wall", dict(order=1, solver="mpt", steps=100), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SOLVER_TWIN_CASES))
+def test_redesigned_solver_kernel_equals_its_twin(cuda, case):
+    """opt_solver_value (shared reciprocals, its own RIS and wall loops,
+    shared memory sized to the scene) against opt_solver_value_seq, the
+    kernel before the redesign, bit for bit, on a 65 x 65 grid from 0 to 1
+    (the zero-length wall's point is a pixel: unit()'s n2 == 0 branch)."""
+    name, kw, groups = _SOLVER_TWIN_CASES[case]
+    scene = _solver_scene(name, cuda)
+    o = {**tr._OPTIONS, "approx": True, **kw, "key": prng.PRNGKey(1234)}
+    if groups is None:
+        groups = tr._groups_for(scene, o)
+    x = torch.linspace(0.0, 1.0, 65, device=cuda)
+    X, Y = torch.meshgrid(x, x, indexing="xy")
+    args = osk.solver_request(scene, X, Y, groups, **tr._solver_options(o))
+    kkw = dict(approx=o["approx"], sigmoid=o["function"] is sigmoid)
+    before, twins = osk.LAUNCHES["opt_solver_value"], osk.TWIN_LAUNCHES["opt_solver_value_seq"]
+    v, tv = osk.value(*args, **kkw), osk.twin_value(*args, **kkw)
+    torch.cuda.synchronize()
+    n_tx = args[2].shape[0]
+    assert osk.LAUNCHES["opt_solver_value"] == before + n_tx
+    assert osk.TWIN_LAUNCHES["opt_solver_value_seq"] == twins + n_tx
+    assert _same(v, tv)
+    assert float(v.nan_to_num().abs().sum()) > 0.0
+
+
+def _vag_twins(scene, n, kw, dev):
+    o = {**tr._OPTIONS, **kw}
+    groups = tr._groups_for(scene, o)
+    sig = o["function"] is sigmoid
+    target = scene.swap_ends() if o["on_transmitters"] else scene
+    txs = torch.stack(list(target.transmitters.values())).contiguous()
+    X, Y = torch.meshgrid(torch.linspace(0.03, 0.97, n, device=dev),
+                          torch.linspace(0.02, 0.96, n, device=dev), indexing="xy")
+    args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), txs, scene.walls,
+            scene.kind, scene.phi, tuple(o[k] for k in tr._SCALAR_NAMES),
+            pmk.kernel_inputs(groups, dev, approx=o["approx"], sigmoid=sig))
+    kkw = dict(approx=o["approx"], sigmoid=sig)
+    before, twins = pmk.LAUNCHES["power_map_vag"], pmk.TWIN_LAUNCHES["power_map_vag_seq"]
+    (v, g), (tv, tg) = pmk.value_and_grad(*args, **kkw), pmk.twin_value_and_grad(*args, **kkw)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES["power_map_vag"] == before + 1
+    assert pmk.TWIN_LAUNCHES["power_map_vag_seq"] == twins + 1
+    assert _same(v, tv) and _same(g, tg)
+    assert float(v.nan_to_num().abs().sum()) > 0.0
+
+
+_VAG_TWIN_CASES = {
+    "basic": ("basic", dict(max_order=1, approx=True)),
+    "hard": ("basic", dict(max_order=1, approx=False)),
+    "sigmoid": ("basic", dict(max_order=1, approx=True, function=sigmoid)),
+    "ris_vertex": ("mixed", dict(max_order=1, approx=True)),
+    "two_tx": ("two_tx", dict(max_order=1, approx=True)),
+    "tx_grid": ("basic", dict(max_order=1, approx=True, on_transmitters=True)),
+    "order2": ("basic", dict(max_order=2, approx=True)),
+    "duplicated_wall": ("duplicated", dict(max_order=2, approx=True)),
+    "short_walls": ("short", dict(max_order=1, approx=True)),
+    "short_walls_sigmoid": ("short", dict(max_order=1, approx=True, function=sigmoid)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_VAG_TWIN_CASES))
+def test_redesigned_vag_kernel_equals_its_twin(cuda, case):
+    """power_map_vag (the looped kernels' redesigned sweep over all walls)
+    against power_map_vag_seq, the sequential sweep, bit for bit on value
+    and gradient, on a 48 x 48 grid (a ragged last warp)."""
+    name, kw = _VAG_TWIN_CASES[case]
+    scene = {
+        "basic": lambda: Scene.basic_scene(device=cuda),
+        "mixed": lambda: Scene.square_scene(device=cuda).add_ris(
+            [[0.5, 0.3], [0.5, 0.7]]).add_vertex([0.25, 0.75]),
+        "two_tx": lambda: Scene.basic_scene(device=cuda).update_transmitters(tx2=[0.8, 0.8]),
+        "duplicated": lambda: _duplicated_wall(cuda),
+        "short": lambda: _short_walls(cuda),
+    }[name]()
+    _vag_twins(scene, 47, kw, cuda)
+
+
+@pytest.mark.parametrize("mode", ["hard_sigmoid", "sigmoid"])
+def test_short_walls_looped_kernels_equal_their_twins(cuda, mode):
+    """Blocked tests with |den| between 2^-126 and the rejection's 2^-90:
+    the redesigned looped kernels against their sequential twins, bit for
+    bit, at orders 1 and 2 (the saturated tests' partials are finite)."""
+    for max_order in (1, 2):
+        _check_twins(_short_walls(cuda), 20, True, mode == "sigmoid", cuda, max_order)

@@ -5,7 +5,11 @@ cities, with the tile boxes of a 32 x 32 grid in 8 x 8 tiles, the port's
 ``first_wall_visibility_dead``, ``beam_keep_tables`` (refine 8; the JAX side
 with ``occlusion=False``), ``_occluder_masks`` and ``shadow_wall_lists``
 equal the JAX package's arrays, under hard logic, ``hard_sigmoid`` and
-``sigmoid``; ``_span_covered`` too, on random intervals.
+``sigmoid``; also on a random city with walls of lengths 2^-20 to 2^-62,
+above the port's short-wall rule (``cull_tables._FLT_MIN``), which is the
+one place where its tables may differ from the JAX package's (walls whose
+squared length is not a normal float32); ``_span_covered`` too, on random
+intervals.
 Their soundness is ``tests/test_torch_cull_soundness.py``'s.
 """
 
@@ -43,6 +47,16 @@ def random_city(seed: int, n_buildings: int = 12):
 
 
 def _scene(name):
+    if name == "short walls":
+        # random0 with its last building's four walls replaced by walls from
+        # the origin (where float32 holds such lengths) of lengths about
+        # 2^-20, 2^-40, 2^-60 and 2^-62: above the port's short-wall cut
+        # (|d|^2 a normal float32), so its tables stay the JAX package's.
+        walls, kind, tx = random_city(0, 34)
+        length = 2.0 ** -np.array([20, 40, 60, 62])[:, None]
+        ends = length * np.array([[1.0, 0.5], [0.5, 1.0], [1.0, -0.5], [-0.5, 1.0]])
+        walls[-4:] = np.stack([np.zeros_like(ends), ends], axis=1).astype(np.float32)
+        return walls, kind, tx
     if name.startswith("random"):
         # As many walls as the two city scenes (136, 120): the JAX side
         # compiles its ops once per shape.
@@ -64,7 +78,7 @@ def _bounds(X, Y, tile):
 
 
 CASES = [("city_extract_scene", m) for m in range(3)] + [
-    ("city_scene", 0), ("random0", 1), ("random1", 2)]
+    ("city_scene", 0), ("random0", 1), ("random1", 2), ("short walls", 1)]
 
 
 @pytest.mark.parametrize("name,mode", CASES)

@@ -10,14 +10,18 @@
   the gradient.
 * The tiles' work list is a permutation of the tiles, longest first, and
   its counts equal a count made candidate by candidate.
-* The sequential twins stay out of the dispatch: ``tracer.py`` and the
+* The sequential twins (the looped kernels', ``opt_solver_value_seq`` and
+  ``power_map_vag_seq``) stay out of the dispatch: ``tracer.py`` and the
   wrappers it calls never name them.
-* The CUDA source's constants match the wrapper's.
+* The CUDA sources' constants and exports match the wrappers'.
+* Scenes with walls too short for the culling boxes keep culled ==
+  identity tables.
 """
 
 import inspect
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -26,13 +30,15 @@ import torch
 from differt2d_tpu_torch import Scene
 from differt2d_tpu_torch import tracer
 from differt2d_tpu_torch.ops import cull_tables
+from differt2d_tpu_torch.ops import opt_solver_kernel as osk
+from differt2d_tpu_torch.ops import power_map_kernel as pmk
 from differt2d_tpu_torch.ops import power_map_looped as pml
 from differt2d_tpu_torch.ops.power_map_kernel import SOFT_HARD, SOFT_NONE, SOFT_SIGMOID
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(ROOT, "differt2d_tpu_torch", "ops", "csrc", "power_map_looped.cu")
+CSRC = os.path.join(ROOT, "differt2d_tpu_torch", "ops", "csrc")
 f32 = np.float32
 
 
@@ -204,23 +210,101 @@ def test_tile_work_list_is_longest_first(name, max_order):
         assert int(tests[t]) == _brute_tests(plan, inputs, scene.kind, t)
 
 
-def test_sequential_twins_stay_out_of_the_dispatch():
+_TWINS = {  # the wrapper module, its dispatching callables, the kernels' names
+    "looped": (pml, ("value", "value_and_grad", "power_map_looped", "LoopedMapFunction",
+                     "_launch"),
+               {"power_map_looped_value", "power_map_looped_vag"},
+               {"power_map_looped_value_seq", "power_map_looped_vag_seq"}),
+    "solver": (osk, ("value", "full_value", "solver_map", "SolverMapFunction"),
+               {"opt_solver_value"}, {"opt_solver_value_seq"}),
+    "vag": (pmk, ("value", "value_and_grad", "power_map_kernel", "PowerMapFunction"),
+            {"power_map_value", "power_map_vag"}, {"power_map_vag_seq"}),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_TWINS))
+def test_sequential_twins_stay_out_of_the_dispatch(family):
+    """tracer.py and the wrappers it calls never name a sequential twin
+    (power_map_looped_*_seq, opt_solver_value_seq, power_map_vag_seq)."""
     with open(inspect.getsourcefile(tracer)) as f:
         src = f.read()
     assert "_seq" not in src and "twin" not in src
-    for fn in (pml.value, pml.value_and_grad, pml.power_map_looped, pml.LoopedMapFunction,
-               pml._launch):
-        body = inspect.getsource(fn)
-        assert "_seq" not in body and "twin_" not in body, fn.__name__
-    assert set(pml.LAUNCHES) == {"power_map_looped_value", "power_map_looped_vag"}
+    mod, callables, launches, twins = _TWINS[family]
+    for name in callables:
+        body = inspect.getsource(getattr(mod, name))
+        assert "_seq" not in body and "twin_" not in body, name
+    assert set(mod.LAUNCHES) == launches
+    assert set(mod.TWIN_LAUNCHES) == twins
 
 
-def test_cuda_source_matches_the_wrapper():
-    with open(SOURCE) as f:
+_SOURCES = {  # the CUDA source, its exports, the wrapper module
+    "looped": ("power_map_looped.cu", ("power_map_looped_value", "power_map_looped_vag",
+                                       "power_map_looped_value_seq", "power_map_looped_vag_seq",
+                                       "sigmoid_band_probe"), pml),
+    "solver": ("opt_solver.cu", ("opt_solver_value", "opt_solver_value_seq",
+                                 "opt_solver_occupancy"), osk),
+    "vag": ("power_map.cu", ("power_map_value", "power_map_vag", "power_map_vag_seq",
+                             "power_map_occupancy", "power_map_sigmoid_band_probe"), pmk),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_SOURCES))
+def test_cuda_source_matches_the_wrapper(family):
+    source, exports, mod = _SOURCES[family]
+    with open(os.path.join(CSRC, source)) as f:
         src = f.read()
-    assert re.search(r"kRejectMinDen = 0x1p-90f", src) and pml.REJECT_MIN_DEN == 2.0 ** -90
-    for name in ("power_map_looped_value", "power_map_looped_vag",
-                 "power_map_looped_value_seq", "power_map_looped_vag_seq",
-                 "sigmoid_band_probe"):
+    with open(os.path.join(CSRC, "power_map_common.cuh")) as f:
+        common = f.read()
+    assert re.search(r"kRejectMinDen = 0x1p-90f", common) and pml.REJECT_MIN_DEN == 2.0 ** -90
+    assert re.search(r"kGateExit = 1;", common) and pmk.GATE_EXIT == 1
+    for name in exports:
         assert re.search(rf"^int {name}\(", src, re.M), name
-    assert set(pml.TWIN_LAUNCHES) == {"power_map_looped_value_seq", "power_map_looped_vag_seq"}
+    # Every export the wrapper declares is in the source, with as many
+    # parameters as the wrapper passes.
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in exports})
+    mod._declare(lib)
+    for name in exports:
+        sig = re.search(rf"^int {name}\(([^{{]*)\)", src, re.M | re.S)
+        params = sig.group(1)
+        n = params.count(",") + 1 if "LP_ARGS" not in params else None
+        if n is not None:
+            assert len(getattr(lib, name).argtypes) == n, name
+
+
+@pytest.mark.parametrize("max_order,mode", [(1, "hard_sigmoid"), (2, "hard_sigmoid"),
+                                            (1, "sigmoid"), (1, "hard")])
+def test_short_walls_culled_equal_identity(max_order, mode):
+    """Walls of lengths 2^-100, 2^-115 and 2^-124 (blocked tests with |den|
+    between 2^-126 and the rejection's 2^-90, and on-object tests that
+    divide by 1 where |d|^2 underflows): the plain version with the culling
+    tables equals it with identity tables, bit for bit (NaN where NaN)."""
+    basic = Scene.basic_scene(device="cpu")
+    short = np.array([[[0, 0], [2.0 ** -100, 2.0 ** -101]], [[0, 0], [2.0 ** -115, 2.0 ** -116]],
+                      [[0, 0], [2.0 ** -124, 2.0 ** -125]], [[1, 1], [1, 1]]], np.float32)
+    scene = Scene.from_arrays(np.concatenate([basic.walls.numpy(), short]),
+                              transmitters={"tx": basic.transmitters["tx"].numpy()},
+                              receivers={"rx": [0.5, 0.5]}, device="cpu")
+    x = torch.linspace(0.01, 0.99, 12)
+    X, Y = torch.meshgrid(x, x, indexing="xy")
+    approx, sig = mode != "hard", mode == "sigmoid"
+    o = {**tracer._OPTIONS, "max_order": max_order, "approx": approx}
+    groups = tracer._groups_for(scene, o)
+    inputs = pml.looped_inputs(groups, "cpu", approx=approx, sigmoid=sig)
+    txs = torch.stack(list(scene.transmitters.values())).contiguous()
+    scal = tuple(o[k] for k in tracer._SCALAR_NAMES)
+    maps = []
+    for on in (True, False):
+        plan = pml.make_plan(X, Y, txs, scene.walls, scene.kind, scal, inputs, approx=approx,
+                             sigmoid=sig, cull=on, shadow=on)
+        maps.append(pml.plain_looped_value_and_grad(X.reshape(-1), Y.reshape(-1), scene.walls,
+                                                    scene.kind, scene.phi, scal, inputs, plan))
+    (v, g), (iv, ig) = maps
+    assert torch.equal(v, iv)
+    assert torch.equal(g.isnan(), ig.isnan()) and torch.equal(g.nan_to_num(), ig.nan_to_num())
+    # The short walls are occluders of every segment, and the segments that
+    # end on them list every wall.
+    geo = cull_tables._shadow_geometry(scene.walls, scene.kind, txs[0], 0.0, 100.0, approx,
+                                       sig, 1e-2)
+    assert geo["short"].tolist() == [False] * 7 + [True, True, True, False]
+    m0 = cull_tables.first_masks(geo, txs[0])
+    assert bool(m0[:, 7:10].sum(0).eq(10).all()) and bool(m0[7:10, :10].sum(1).eq(9).all())
