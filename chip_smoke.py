@@ -24,11 +24,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    respect to the transmitter, the walls and alpha, against the plain
    version's autograd;
 6. timing with CUDA events (32 maps chained without a host sync, median of
-   5 repeats), each kernel's bound, and the plain version's time; the
-   redesigned ``power_map_vag`` timed against its sequential twin in turns
-   (twin, new, new, twin), its registers, blocks per SM, the instructions
-   of one blocked test (``sass_census``) and its issue-slot bound; whether
-   the card's sigmoid keeps the bands the rejection rests on;
+   5 repeats), each kernel's bound (the work these inputs need: the
+   blocked tests of gate-live candidates, rejected ones at their cost, from
+   a census of 32 tiles), and the plain version's time; the redesigned
+   ``power_map_value`` and ``power_map_vag`` each timed against its
+   sequential twin in turns (twin, new, new, twin), with their registers,
+   blocks per SM, the instructions of one blocked test and of a rejected
+   one (``sass_census``) and their issue-slot bounds; whether the card's
+   sigmoid keeps the bands the rejection rests on;
 7. the city path: ``power_map`` of ``Scene.city_extract_scene()`` (136
    walls, order <= 1, soft logic, alpha 100) on a 1024 x 1024 grid, value
    and value + gradient, through the looped kernels with their culling
@@ -107,14 +110,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     1024 order-2 and order-1 city maps, the 256 x 256 order-1 map and, at
     32 x 32, every phase-16 case, a RIS with a vertex and a duplicated wall;
     and whether the card's sigmoid keeps the bands the redesign relies on.
-20. the redesigned ``opt_solver_value`` and ``power_map_vag`` against
-    their sequential twins (``opt_solver_value_seq``,
-    ``power_map_vag_seq``: the same sources with the redesign off),
+20. the redesigned ``opt_solver_value``, ``power_map_vag`` and
+    ``power_map_value`` against their sequential twins
+    (``opt_solver_value_seq``, ``power_map_vag_seq``,
+    ``power_map_value_seq``: the same sources with the redesign off),
     ``torch.equal``: the 1024 x 1024 RIS map and wall solves, the phase-12
     cases at 256 x 256, a RIS with a vertex and a zero-length wall on a
-    pixel; the 1024 x 1024 basic-scene gradient map, the phase-4 cases at
-    256 x 256, a duplicated wall and walls short enough for blocked tests
-    with |den| below 2^-90.
+    pixel; the 1024 x 1024 basic-scene gradient and value maps, the
+    phase-4 cases at 256 x 256, a duplicated wall and walls short enough
+    for blocked tests with |den| below 2^-90; for the value kernel also the
+    24-wall slice of ``city_scene`` (stream proxy 1,176, the top of its
+    route) and phase 11's line-of-sight group, at 1024 x 1024.
+21. ``power_map_value`` against its twin in turns on that line-of-sight
+    group, the 24-wall slice and the basic scene at order 2 (1024 x 1024);
+    and the router record: on slices of ``city_scene`` and the basic scene
+    at order 2, whose stream proxies bracket 400 and 1,200, the unrolled
+    kernels against the looped route (kernel alone, and table build plus
+    kernel), value and value + gradient, each pair held against each other.
 
     Phases 10 and 18 time each looped kernel against its twin in turns
     (twin, new, new, twin) and bound it by the work these inputs need
@@ -619,46 +631,44 @@ def main() -> int:
     e2e_vag_ms = cuda_time_ms(lambda: power_map(scene, X, Y, value_and_grad=True, **main_kw), k, reps)
     bands = pmk.sigmoid_bands(dev)
     print("sigmoid bands of power_map.cu on the card (every float32 past -18, -89 and 19): "
-          + ("hold: sigmoid gradient maps run with the rejection and the saturation exit"
-             if bands else "FAIL: sigmoid gradient maps run without the rejection and the"
-             " saturation exit"), flush=True)
+          + ("hold: sigmoid value and gradient maps run with the rejection and the saturation"
+             " exit" if bands else "FAIL: sigmoid value and gradient maps run without the"
+             " rejection and the saturation exit"), flush=True)
     rows = []
     for name, with_grad, err in (("power_map_value", False, err_value),
                                  ("power_map_vag", True, err_vag)):
         before = pmk.LAUNCHES[name]
-        if with_grad:
-            # The redesign against its sequential twin, in turns.
-            ms, twin_ms, turns = twin_times(
-                kernel_call(True),
-                lambda: pmk.twin_value_and_grad(*args, approx=True, sigmoid=False), k, reps)
-            per_map = (pmk.LAUNCHES[name] - before) / (2 * (k * reps + 1))
-        else:
-            ms = cuda_time_ms(kernel_call(False), k, reps)
-            per_map = (pmk.LAUNCHES[name] - before) / (k * reps + 1)
+        twin = pmk.twin_value_and_grad if with_grad else pmk.twin_value
+        # The redesign against its sequential twin, in turns.
+        ms, twin_ms, turns = twin_times(
+            kernel_call(with_grad), lambda: twin(*args, approx=True, sigmoid=False), k, reps)
+        per_map = (pmk.LAUNCHES[name] - before) / (2 * (k * reps + 1))
         plain = pmk.plain_value_and_grad if with_grad else pmk.plain_value
         plain_ms = cuda_time_ms(lambda: plain(*args), 2, 3)
+        census = unrolled_census(scene, X, Y, groups, txs, scal, dev, with_grad)
         bytes_moved = P * (8 + (12 if with_grad else 4))
         ops_px, ops_launch = ops_count(groups, scene.kinds, txs.shape[0], with_grad)
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = (P * ops_px + ops_launch) / peak_fp32 * 1e3
+        # The work these inputs need: the tests of gate-live candidates,
+        # rejected ones at OPS_REJECT (needed_ops, from the census).
+        tests = census["tests_px"] * P
+        needed = needed_ops(P * ops_px + ops_launch, tests, census)
+        t_ops = needed / peak_fp32 * 1e3
         bound_ms = max(t_bytes, t_ops)
         print(f"{name}: {ms:.4f} ms/map, {P / ms * 1e3:.4g} points/s, {per_map:g} launches/map;"
               f" plain {plain_ms:.3f} ms/map; bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of the"
-              f" kernel's time ({ops_px} ops/px + {ops_launch} per launch, {bytes_moved / P:.0f}"
-              f" B/px)", flush=True)
-        row = {
+              f" kernel's time ({needed / P:.1f} ops/px needed of {ops_px} ops/px + {ops_launch}"
+              f" per launch with every test, {bytes_moved / P:.0f} B/px)", flush=True)
+        print(f"{name}: redesigned {ms:.4f} ms/map against its sequential twin {name}_seq"
+              f" {twin_ms:.4f} ms/map (turns twin, new, new, twin:"
+              f" {', '.join(f'{x:.4f}' for x in turns)}) [{card}]", flush=True)
+        unrolled_issue_bound(scene, census, P, with_grad)
+        rows.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-        }
-        if with_grad:
-            row["twin_ms"] = twin_ms
-            print(f"power_map_vag: redesigned {ms:.4f} ms/map against its sequential twin"
-                  f" power_map_vag_seq {twin_ms:.4f} ms/map (turns twin, new, new, twin:"
-                  f" {', '.join(f'{x:.4f}' for x in turns)})", flush=True)
-            vag_issue_bound(scene, X, Y, groups, txs, scal, dev, P)
-        rows.append(row)
+            "launches": launches[name], "max_abs_err": err, "ms": ms, "twin_ms": twin_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        })
     print(f"end to end power_map 1024^2: value {e2e_ms:.4f} ms/map ({P / e2e_ms * 1e3:.4g}"
           f" points/s), value+grad {e2e_vag_ms:.4f} ms/map ({P / e2e_vag_ms * 1e3:.4g} points/s)",
           flush=True)
@@ -670,6 +680,7 @@ def main() -> int:
         print(f"phases {first}-{first + 3}: {time.perf_counter() - t0:.1f} s", flush=True)
     twin_phase(dev)
     redesign_phase(dev)
+    value_router_phase(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -1330,7 +1341,7 @@ def issue_slots_ms(instructions: float) -> float:
 
 def describe(p: dict) -> str:
     keys = ("total", "fp32", "sfu", "MUFU.RCP", "MUFU.RSQ", "MUFU.EX2", "integer", "memory",
-            "control", "slow_path_branches", "calls")
+            "control", "slow_path_branches", "calls", "tests_a_pass")
     return ", ".join(f"{k} {p[k]:g}" for k in keys if p.get(k))
 
 
@@ -1352,60 +1363,62 @@ def adam_step(kernel: str, ris: bool) -> dict:
 
 
 def blocked_tests(kernel: str) -> tuple:
-    """``(full test, rejected test)`` passes of the gradient ``kernel``'s
-    blocked-test loops from its SASS: the redesigned sweep's loops (those
-    with a bit scan, FLO) where it has them, the sequential sweep's (those
-    with the three divisions of seg_vag) otherwise; the rejected test is
-    None for the latter.  Each the median over the kernel's loops."""
-    import statistics as st
+    """``(full test, rejected test)`` of a value or gradient ``kernel``'s
+    blocked-test loops from its SASS (``sass_census.blocked_test``: the
+    redesigned sweep's loops, with a bit scan, where it has them, else the
+    sequential sweep's, with seg_margin's two divisions or seg_vag's three,
+    per test)."""
+    from differt2d_tpu_torch.ops import sass_census
 
     loops = kernel_census("power_map.cu")[kernel]["loops"]
-    fast = [loop for loop in loops if any(k.startswith("FLO") for p in loop for k in p)]
-    seq = [loop for loop in loops if any(p.get("MUFU.RCP", 0) >= 3 for p in loop)]
-    chosen = fast or seq
-    check(bool(chosen), f"{kernel}: no blocked-test loop in the SASS")
-    full = sorted((max(loop, key=lambda q: q["total"]) for loop in chosen),
-                  key=lambda q: q["total"])[len(chosen) // 2]
-    rej = None
-    if fast:
-        rej = sorted((min(loop, key=lambda q: q["total"]) for loop in chosen),
-                     key=lambda q: q["total"])[len(chosen) // 2]
+    full, rej = sass_census.blocked_test(loops, sass_census.divisions_of(kernel))
+    check(full is not None, f"{kernel}: no blocked-test loop in the SASS")
     return full, rej
 
 
-def vag_issue_bound(scene, X, Y, groups, txs, scal, dev, P: int) -> None:
-    """Registers, blocks per SM, the instructions of one blocked test and
-    the issue-slot bound of the 1024^2 basic-scene gradient map, for the
-    redesigned kernel and its twin (hard_sigmoid, the main path's)."""
-    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+def unrolled_census(scene, X, Y, groups, txs, scal, dev, grad: bool) -> dict:
+    """``looped_tuning.sweep_census`` of an unrolled map (identity tables,
+    32 tiles spread over the grid; ``grad`` picks the rejection bounds) with
+    ``tests_px``, the blocked tests a pixel when every segment meets every
+    non-adjacent, non-vertex wall."""
     from differt2d_tpu_torch.ops import power_map_looped as pml
     from differt2d_tpu_torch.ops.looped_tuning import sweep_census
 
-    census = kernel_census("power_map.cu")
-    tests = sum(cand_ops([int(i) for i in row], scene.kinds, True)[1]
-                for rows in groups.values() for row in rows) * txs.shape[0]
-    # The work these inputs need: the tests of live candidates (their gates
-    # live), rejected or not, from an identity-table census of 32 tiles.
     inputs = pml.looped_inputs(groups, dev, approx=True, sigmoid=False)
     plan = pml.make_plan(X, Y, txs, scene.walls, scene.kind, scal, inputs, approx=True,
                          sigmoid=False, cull=False, shadow=False)
     T = plan.tiles[0] * plan.tiles[1]
-    c = sweep_census(scene, X, Y, plan, inputs, scal, list(range(0, T, max(1, T // 32))), True)
+    c = sweep_census(scene, X, Y, plan, inputs, scal, list(range(0, T, max(1, T // 32))), grad)
+    c["tests_px"] = sum(cand_ops([int(i) for i in row], scene.kinds, grad)[1]
+                        for rows in groups.values() for row in rows) * txs.shape[0]
+    return c
+
+
+def unrolled_issue_bound(scene, c: dict, P: int, grad: bool) -> None:
+    """Registers, blocks per SM, the instructions of one blocked test and
+    the issue-slot bound of the 1024^2 basic-scene value (``grad`` False) or
+    gradient map, for the redesigned kernel and its twin (hard_sigmoid, the
+    main path's), from ``unrolled_census``'s ``c``: the twin runs every
+    test in full, the redesign the gate-live ones, rejected or not."""
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+
+    census = kernel_census("power_map.cu")
     listed = max(c["listed"], 1)
-    for name, fast in (("power_map_vag", True), ("power_map_vag_seq", False)):
-        kern = f"power_map_kernel<true, 1, {'true' if fast else 'false'}>"
+    base = "power_map_vag" if grad else "power_map_value"
+    for name, fast in ((base, True), (f"{base}_seq", False)):
+        kern = f"power_map_kernel<{'true' if grad else 'false'}, 1, {'true' if fast else 'false'}>"
         full, rej = blocked_tests(kern)
         if fast:
             per_test = ((c["live_rejected"] * rej["total"]
                          + (c["live"] - c["live_rejected"]) * full["total"]) / listed)
         else:
             per_test = full["total"]
-        bound = issue_slots_ms(P * tests * per_test)
+        bound = issue_slots_ms(P * c["tests_px"] * per_test)
         print(f"{name} (hard_sigmoid): {census[kern]['registers']} registers,"
-              f" {pmk.occupancy(True, 1, fast, len(scene.kinds))} blocks of 128 per SM;"
+              f" {pmk.occupancy(grad, 1, fast, len(scene.kinds))} blocks of 128 per SM;"
               f" one blocked test: {describe(full)}"
               + (f"; a rejected test: {describe(rej)}" if rej else "")
-              + f"; issue-slot bound {bound:.4f} ms ({tests} tests/px"
+              + f"; issue-slot bound {bound:.4f} ms ({c['tests_px']} tests/px"
               + (f", live {c['live'] / listed:.2%}, live and rejected"
                  f" {c['live_rejected'] / listed:.2%} of them" if fast else "")
               + ")", flush=True)
@@ -1514,23 +1527,160 @@ def redesign_phase(dev) -> None:
         ("short walls, sigmoid", short_wall_scene(dev), 256, dict(o1, function=sigmoid)),
     ]
     for name, sc, size, kw in vag_cases:
-        X, Y = grid(size, dev)
-        o = {**tr._OPTIONS, **kw}
-        groups = tr._groups_for(sc, o)
-        sig = o["function"] is sigmoid
-        target = sc.swap_ends() if o["on_transmitters"] else sc
-        txs = torch.stack(list(target.transmitters.values())).contiguous()
-        inputs = pmk.kernel_inputs(groups, dev, approx=o["approx"], sigmoid=sig)
-        args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), txs, sc.walls, sc.kind,
-                sc.phi, tuple(o[n] for n in tr._SCALAR_NAMES), inputs)
-        kkw = dict(approx=o["approx"], sigmoid=sig)
+        args, kkw = unrolled_args(sc, *grid(size, dev), kw)
         (v, g), (tv, tg) = pmk.value_and_grad(*args, **kkw), pmk.twin_value_and_grad(*args, **kkw)
         same = [twin_equal(v, tv), twin_equal(g, tg)]
         check(all(same), f"{name} {size}^2: power_map_vag != power_map_vag_seq (value, gradient:"
                          f" {same}; {int((g != tg).sum())} gradient elements differ)")
         print(f"  {name} {size}^2: power_map_vag == power_map_vag_seq, torch.equal on value and"
               f" gradient ({v.numel()} pixels)", flush=True)
+
+    # power_map_value against power_map_value_seq: the same cases, the
+    # scene at the top of the value route and phase 11's line of sight.
+    value_cases = [(name, *unrolled_args(sc, *grid(size, dev), kw), size)
+                   for name, sc, size, kw in vag_cases]
+    value_cases.append((PROXY_1200_NAME, *unrolled_args(city_slice(24, dev), *grid(1024, dev),
+                                                        o1), 1024))
+    value_cases.append(("line of sight of the Fermat orders 0-1 map", *fermat_los(dev, 1024),
+                        1024))
+    for name, args, kkw, size in value_cases:
+        before = (pmk.LAUNCHES["power_map_value"], pmk.TWIN_LAUNCHES["power_map_value_seq"])
+        v, tv = pmk.value(*args, **kkw), pmk.twin_value(*args, **kkw)
+        check((pmk.LAUNCHES["power_map_value"], pmk.TWIN_LAUNCHES["power_map_value_seq"])
+              == (before[0] + 1, before[1] + 1), f"{name}: the value kernel or its twin did not run")
+        check(twin_equal(v, tv), f"{name} {size}^2: power_map_value != power_map_value_seq at"
+                                 f" {int((v != tv).sum())} pixels")
+        print(f"  {name} {size}^2: power_map_value == power_map_value_seq, torch.equal"
+              f" ({v.numel()} pixels, {int((v != 0).sum())} nonzero)", flush=True)
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+PROXY_1200_NAME = "city slice, 24 walls (stream proxy 1,176)"
+
+
+def city_slice(n_walls: int, device):
+    """The first ``n_walls`` walls of ``Scene.city_scene()`` (four a
+    building, a column of buildings first) with its transmitter and
+    receiver.  At order 1 the stream proxy is ``W + 2 W^2``: 24 walls give
+    1,176, just under the unrolled value route's 1,200."""
+    from differt2d_tpu_torch import Scene
+
+    city = Scene.city_scene(device=device)
+    return Scene.from_arrays(city.walls[:n_walls], transmitters=dict(city.transmitters),
+                             receivers=dict(city.receivers), device=device)
+
+
+def unrolled_args(sc, X, Y, kw):
+    """``(args, kernel kw)`` of the unrolled wrappers for ``power_map(sc, X,
+    Y, **kw)``."""
+    import torch
+
+    from differt2d_tpu_torch import tracer as tr
+    from differt2d_tpu_torch.logic import sigmoid
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+
+    o = {**tr._OPTIONS, **kw}
+    groups = tr._groups_for(sc, o)
+    sig = o["function"] is sigmoid
+    target = sc.swap_ends() if o["on_transmitters"] else sc
+    txs = torch.stack(list(target.transmitters.values())).contiguous()
+    inputs = pmk.kernel_inputs(groups, X.device, approx=o["approx"], sigmoid=sig)
+    args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), txs, sc.walls, sc.kind,
+            sc.phi, tuple(o[n] for n in tr._SCALAR_NAMES), inputs)
+    return args, dict(approx=o["approx"], sigmoid=sig)
+
+
+def fermat_los(dev, n: int):
+    """``(args, kernel kw)`` of the line-of-sight group of phase 11's Fermat
+    map of ``Scene.square_scene()`` at orders 0-1 (100 steps, key 1234) on
+    the ``n`` x ``n`` grid: the inputs the solver route gives
+    ``power_map_value``."""
+    from differt2d_tpu_torch import Scene, prng
+    from differt2d_tpu_torch import tracer as tr
+    from differt2d_tpu_torch.ops import opt_solver_kernel as osk
+
+    sq = Scene.square_scene()
+    o = {**tr._OPTIONS, "order": None, "min_order": 0, "max_order": 1, "solver": "fermat",
+         "steps": 100, "approx": True, "key": prng.PRNGKey(1234)}
+    X, Y = city_grid(n, dev)
+    args = osk.solver_request(sq, X, Y, tr._groups_for(sq, o), **tr._solver_options(o))
+    check(args[-1].los is not None, "the Fermat orders 0-1 map has no line-of-sight group")
+    return (*args[:-1], args[-1].los), dict(approx=True, sigmoid=False)
+
+
+ROUTER_SCENES = ((12, 1), (16, 1), (24, 1), (28, 1), (7, 2), (60, 1), (120, 1))
+"""Phase 21's scenes: ``(walls, order)``; walls from ``city_slice`` (7 at
+order 2: the basic scene; 120, the whole of ``city_scene``).  Stream proxies
+300, 528, 1,176, 1,596, 987, 7,260 and 28,920: they bracket the gradient
+route's 400 and the value route's 1,200, and reach past the crossover."""
+
+
+def value_router_phase(dev) -> None:
+    """Phase 21: the redesigned power_map_value against its twin in turns on
+    the Fermat map's line-of-sight group, the scene at the top of the value
+    route and the basic scene at order 2, all at 1024 x 1024; then the
+    router record: the unrolled kernels (B1, B2) against the looped route
+    (table build and kernel) on scenes whose stream proxy brackets 400 and
+    1,200, each pair held against each other within rtol 1e-4 / atol 1e-5
+    (the gradients under the kink contract)."""
+    from differt2d_tpu_torch import Scene
+    from differt2d_tpu_torch import tracer as tr
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+    from differt2d_tpu_torch.ops import power_map_looped as pml
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    X, Y = grid(1024, dev)
+    o1, o2 = dict(max_order=1, approx=True), dict(max_order=2, approx=True)
+    for name, (args, kkw) in (
+            ("line of sight of the Fermat orders 0-1 map", fermat_los(dev, 1024)),
+            (PROXY_1200_NAME, unrolled_args(city_slice(24, dev), X, Y, o1)),
+            ("basic scene, order 2 (stream proxy 987)",
+             unrolled_args(Scene.basic_scene(), X, Y, o2))):
+        ms, twin_ms, turns = twin_times(lambda: pmk.value(*args, **kkw),
+                                        lambda: pmk.twin_value(*args, **kkw), 32, 5)
+        print(f"  power_map_value, {name} 1024^2: {ms:.4f} ms/map against power_map_value_seq"
+              f" {twin_ms:.4f} (turns twin, new, new, twin: {', '.join(f'{x:.4f}' for x in turns)})"
+              f" [{card}]", flush=True)
+
+    print(f"router record, 1024^2, ms/map [{card}]: unrolled kernel | looped kernel | looped"
+          f" table build + kernel", flush=True)
+    for n_walls, order in ROUTER_SCENES:
+        sc = Scene.basic_scene() if order == 2 else city_slice(n_walls, dev)
+        kw = dict(max_order=order, approx=True)
+        o = {**tr._OPTIONS, **kw}
+        groups = tr._groups_for(sc, o)
+        proxy = tr.stream_proxy(groups, sc.num_objects)
+        args, kkw = unrolled_args(sc, X, Y, kw)
+        cull, shadow = tr._looped_gates(sc, o, groups)
+        inputs = pml.looped_inputs(groups, dev, approx=True, sigmoid=False)
+
+        def plan():
+            return pml.make_plan(X, Y, args[2], sc.walls, sc.kind, args[6], inputs, approx=True,
+                                 sigmoid=False, cull=cull, shadow=shadow)
+
+        la = (*args[:2], sc.walls, sc.kind, sc.phi, args[6], inputs)
+        p0 = plan()
+        for grad in (False, True):
+            unrolled = (lambda: pmk.value_and_grad(*args, **kkw)) if grad else (
+                lambda: pmk.value(*args, **kkw))
+            looped = pml.value_and_grad if grad else pml.value
+            u, lo = unrolled(), looped(*la, p0, **kkw)
+            if grad:
+                assert_close(f"proxy {proxy} vag value, unrolled vs looped", u[0], lo[0])
+                assert_kinks(f"proxy {proxy} vag gradient, unrolled vs looped", u[1], lo[1])
+            else:
+                assert_close(f"proxy {proxy} value, unrolled vs looped", u, lo)
+            t_u = cuda_time_ms(unrolled, 8, 5)
+            t_k = cuda_time_ms(lambda: looped(*la, p0, **kkw), 8, 5)
+            t_e = cuda_time_ms(lambda: looped(*la, plan(), **kkw), 8, 5)
+            route = tr._route(sc, o, groups, "auto", grad=grad)
+            print(f"  {n_walls} walls, order {order}, stream proxy {proxy},"
+                  f" {'value + gradient' if grad else 'value'} (routed to"
+                  f" {'unrolled' if route == 'cuda' else route} today): {t_u:.4f} | {t_k:.4f} |"
+                  f" {t_e:.4f}; the {'unrolled' if t_u <= t_e else 'looped'} route is faster",
+                  flush=True)
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def short_wall_scene(device):

@@ -1,5 +1,6 @@
 // Power-map kernels for NVIDIA Hopper (sm_90a): power_map_value and
-// power_map_vag (with its sequential twin power_map_vag_seq).
+// power_map_vag, each with its sequential twin (power_map_value_seq,
+// power_map_vag_seq).
 //
 // Replaces the unrolled Pallas TPU kernel
 // differt2d_tpu/ops/pallas_kernels.py::build_power_map_kernel
@@ -33,16 +34,17 @@
 // Bound on the H100: FP32 compute.  A 1024x1024 map of the basic scene
 // (order <= 1: 8 candidates, 7 walls) reads 8 B and writes 4 B per pixel
 // (12 B/px; 20 B/px with the gradient) against a few thousand flops per
-// pixel, so bytes never bound it.  power_map_value keeps every intermediate
-// in registers and does nothing more.  power_map_vag runs the looped
-// kernels' redesigned blocked sweep over all walls (fast_sweep in
-// power_map_common.cuh: a division-free rejection of clear misses, the
-// maximum hit and its first test found in activation space with one
-// seg_vag and two contractions for that winner after the sweep, warp-wide
-// exits where every lane's gates are dead or its path is fully blocked,
-// 16-byte test records and shared memory sized to W); every bit stays as
-// the sequential sweep leaves it, and that sweep, the kernel as it was, is
-// exported as power_map_vag_seq for checks.
+// pixel, so bytes never bound it; the blocked tests are most of the work
+// (91 a pixel).  Both kernels run the looped kernels' redesigned blocked
+// sweep over all walls (fast_sweep in power_map_common.cuh: a
+// division-free rejection of clear misses, warp-wide exits where every
+// lane's gates are dead or its path is fully blocked, 16-byte test records
+// and shared memory sized to W); power_map_value takes its margin form,
+// power_map_vag its winner-only partials (the maximum hit and its first
+// test found in activation space, one seg_vag and two contractions for
+// that winner after the sweep).  Every bit stays as the sequential sweep
+// leaves it, and that sweep, each kernel as it was before its redesign, is
+// exported as power_map_value_seq and power_map_vag_seq for checks.
 //
 // Numerics: built without --use_fast_math; the sigmoid uses expf, not
 // __expf (its f32 saturation was measured under flush-to-zero, see
@@ -82,14 +84,19 @@ __device__ __forceinline__ void contrib_row(const WallRec* __restrict__ sw,
                                       gy);
 }
 
-// FAST = false: every wall's full test (power_map_value, power_map_vag_seq),
-// the walls in a static 512-record array, a thread per pixel that exits
-// past P.  FAST = true (power_map_vag): the redesigned sweep (fast_sweep,
-// with the rejection bounds tlo, thi, the saturation margin sat and the
-// feature bits of power_map_kernel.rejection_bounds), the walls and their
-// 16-byte test records in dynamic shared memory sized to W, and every
-// thread of the last block kept for the warp votes (past P it computes a
-// copy of pixel P - 1 and writes nothing).
+// FAST = false: every wall's full test (the twins power_map_value_seq and
+// power_map_vag_seq), the walls in a static 512-record array, a thread per
+// pixel that exits past P.  FAST = true (power_map_value, power_map_vag):
+// the redesigned sweep (fast_sweep, with the rejection bounds tlo, thi and
+// the saturation margin sat of power_map_kernel.rejection_bounds), the
+// walls and their 16-byte test records in dynamic shared memory sized to
+// W, and every thread of the last block kept for the warp votes (past P it
+// computes a copy of pixel P - 1 and writes nothing).  With G = false the
+// sweep takes fast_sweep's margin form, whose argument (power_map_common.cuh,
+// at fast_sweep: rejected margins at or below the floor, the gate exit, the
+// saturation exit) is the looped value kernel's: the validity reads the
+// running maximum only through 1 - act(blk), so every skipped test leaves
+// each bit of the map as the sequential sweep leaves it.
 template <bool G, int SOFT, bool FAST>
 __global__ void __launch_bounds__(PM_BLOCK)
     power_map_kernel(const float* __restrict__ px, const float* __restrict__ py,
@@ -236,16 +243,35 @@ int launch(int soft_mode, const float* px, const float* py, int P,
 
 extern "C" {
 
-// Value map: out[P].  `cand` is int32[C, PM_MAX_ORDER + 1] rows of
-// (order, wall indices...).  Returns cudaGetLastError() after the launch.
+// Value map through the redesigned sweep: out[P].  `cand` is
+// int32[C, PM_MAX_ORDER + 1] rows of (order, wall indices...); tlo, thi and
+// sat are the rejection bounds and the saturation margin of
+// power_map_kernel.rejection_bounds (grad=False).  Returns
+// cudaGetLastError() after the launch.
 int power_map_value(int soft_mode, const float* px, const float* py, int P,
                     const float* txs, int n_tx, const float* walls,
                     const int* kind, const float* phi, int W, const int* cand,
-                    int C, float alpha, float tol, float patch, float r_coef,
-                    float height, float* out, void* stream) {
+                    int C, float tlo, float thi, float sat, float alpha, float tol,
+                    float patch, float r_coef, float height, float* out, void* stream) {
+  Scalars s{alpha, tol, patch, r_coef, height};
+  return launch<false, true>(soft_mode, px, py, P, txs, n_tx, walls, kind, phi, W, cand, C,
+                             tlo, thi, sat, s, out, nullptr,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The same map through the sequential sweep (every wall's full test, the
+// kernel as it was before the redesign): the redesign's bitwise reference,
+// called by checks only.  It takes power_map_value's arguments and ignores
+// tlo, thi and sat.
+int power_map_value_seq(int soft_mode, const float* px, const float* py, int P,
+                        const float* txs, int n_tx, const float* walls,
+                        const int* kind, const float* phi, int W, const int* cand,
+                        int C, float tlo, float thi, float sat, float alpha, float tol,
+                        float patch, float r_coef, float height, float* out,
+                        void* stream) {
   Scalars s{alpha, tol, patch, r_coef, height};
   return launch<false, false>(soft_mode, px, py, P, txs, n_tx, walls, kind, phi, W, cand, C,
-                              0.0f, 0.0f, 0.0f, s, out, nullptr,
+                              tlo, thi, sat, s, out, nullptr,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -281,14 +307,14 @@ int power_map_vag_seq(int soft_mode, const float* px, const float* py, int P,
 }
 
 // Resident blocks per SM, into *blocks, of the kernel for soft_mode: the
-// value kernel (grad 0), the redesigned gradient kernel (grad 1, fast 1,
-// W walls) or its sequential twin (grad 1, fast 0).
+// value (grad 0) or gradient (grad 1) kernel, redesigned (fast 1, W walls)
+// or its sequential twin (fast 0).
 int power_map_occupancy(int grad, int soft_mode, int fast, int W, int* blocks) {
-  if (bad_args(soft_mode, 1, 0, W, 0) || (!grad && fast))
-    return static_cast<int>(cudaErrorInvalidValue);
-  MapKernel k = !grad ? select_kernel<false, false>(soft_mode)
-                      : (fast ? select_kernel<true, true>(soft_mode)
-                              : select_kernel<true, false>(soft_mode));
+  if (bad_args(soft_mode, 1, 0, W, 0)) return static_cast<int>(cudaErrorInvalidValue);
+  MapKernel k = grad ? (fast ? select_kernel<true, true>(soft_mode)
+                             : select_kernel<true, false>(soft_mode))
+                     : (fast ? select_kernel<false, true>(soft_mode)
+                             : select_kernel<false, false>(soft_mode));
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, k, PM_BLOCK, fast ? fast_smem(W) : 0));
 }

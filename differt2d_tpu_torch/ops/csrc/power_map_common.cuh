@@ -225,7 +225,7 @@ struct Chain {
   }
 };
 
-// -- the redesigned blocked sweep (power_map_looped.cu, and power_map_vag) -----------
+// -- the redesigned blocked sweep (power_map_looped.cu, and power_map.cu) -----------
 
 constexpr float kRejectMinDen = 0x1p-90f;  // power_map_kernel.REJECT_MIN_DEN
 constexpr int kGateExit = 1;  // `features` bit: the gate exits (power_map_kernel.GATE_EXIT)
@@ -511,10 +511,10 @@ __device__ __forceinline__ bool fast_sweep(const Walls& ws, const WallRec* __res
 // pixel gradient).  `id` holds the O wall indices and imx/imy the
 // transmitter's mirror images through them; `blockers` says which walls
 // the blocked test of each segment visits (see AllWalls).  With FAST (the
-// redesigned sweep of the looped kernels and of power_map_vag) the blocked
-// test first goes through blockers.fast_blocked (fast_sweep), which returns
-// whether the sequential sweep below must still run; without it (the _seq
-// twins and power_map_value) the sweep is the one below, unchanged.
+// redesigned sweep of the looped kernels, power_map_value and power_map_vag)
+// the blocked test first goes through blockers.fast_blocked (fast_sweep),
+// which returns whether the sequential sweep below must still run; without
+// it (the _seq twins) the sweep is the one below, unchanged.
 template <bool G, int SOFT, int O, class Blockers, bool FAST = false>
 __device__ __forceinline__ void contrib(const WallRec* __restrict__ sw,
                                         const int* id, const float* imx,
@@ -864,8 +864,8 @@ __device__ __forceinline__ void contrib(const WallRec* __restrict__ sw,
 
 // Blocked-test policy of the unrolled kernels: every segment is tested
 // against every wall, in index order (for_each, the sequential sweep).  The
-// redesigned sweep (power_map_vag) reads the same walls through the
-// non-vertex words `solid` (fast_blocked, see fast_sweep).
+// redesigned sweep (power_map_value, power_map_vag) reads the same walls
+// through the non-vertex words `solid` (fast_blocked, see fast_sweep).
 struct AllWalls {
   int W;
   // Redesigned sweep only:

@@ -5,12 +5,16 @@ Pallas kernel ``differt2d_tpu/ops/pallas_kernels.py::build_power_map_kernel``:
 
 * ``power_map_value`` -- its ``mode="value"``: the map ``[P]``;
 * ``power_map_vag`` -- its ``mode="value_and_grad"``: the map and its
-  pixel gradient ``([P], [P, 2])``, through the looped kernels' redesigned
-  blocked sweep over all walls (rejection of clear misses without a
-  division with the bounds of :func:`rejection_bounds`, the winning wall's
-  partials only, warp-wide exits).  The same source exports the sweep as it
-  was, ``power_map_vag_seq`` (:func:`twin_value_and_grad`): the redesign's
-  bitwise reference, for checks only; the dispatch never calls it.
+  pixel gradient ``([P], [P, 2])``.
+
+Both run the looped kernels' redesigned blocked sweep over all walls
+(rejection of clear misses without a division with the bounds of
+:func:`rejection_bounds`, warp-wide exits; the value kernel in its margin
+form, the gradient kernel with the winning wall's partials only).  The same
+source exports each sweep as it was, ``power_map_value_seq``
+(:func:`twin_value`) and ``power_map_vag_seq`` (:func:`twin_value_and_grad`):
+the redesigns' bitwise references, for checks only; the dispatch never
+calls them.
 
 Beside each is its plain PyTorch version (:func:`plain_value`,
 :func:`plain_value_and_grad`: the eager tracer of
@@ -51,9 +55,9 @@ SOFT_NONE, SOFT_HARD, SOFT_SIGMOID = 0, 1, 2
 
 LAUNCHES = {"power_map_value": 0, "power_map_vag": 0}
 """Launches of each kernel since the process started (or was reset)."""
-TWIN_LAUNCHES = {"power_map_vag_seq": 0}
-"""Launches of the sequential-sweep twin (:func:`twin_value_and_grad`),
-which only checks call."""
+TWIN_LAUNCHES = {"power_map_value_seq": 0, "power_map_vag_seq": 0}
+"""Launches of the sequential-sweep twins (:func:`twin_value`,
+:func:`twin_value_and_grad`), which only checks call."""
 
 _INPUTS_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _INPUTS_CACHE_MAX = 64
@@ -146,7 +150,7 @@ def kernel_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> Kerne
     return cached_inputs("unrolled", groups, device, approx, sigmoid, make)
 
 
-# -- rejection bounds of the redesigned blocked sweep (power_map_vag, looped kernels) --
+# -- rejection bounds of the redesigned blocked sweep (power_map.cu, looped kernels) --
 
 SIGMOID_VALUE_FLOOR = -18.0
 """Margin at and below which the kernels' ``1 - clip(sigm(m), 0, 1)`` is
@@ -319,7 +323,7 @@ def sigmoid_bands(device) -> bool:
     ``z <= SIGMOID_VALUE_FLOOR``, ``sigm(z) == 0`` for ``z <=
     SIGMOID_VAG_FLOOR`` and ``1 - clip(sigm(z), 0, 1) == 0`` for ``z >=
     SIGMOID_SAT`` (``power_map_sigmoid_band_probe``).  Where they fail,
-    sigmoid gradient maps run without the rejection and the saturation exit
+    sigmoid maps run without the rejection and the saturation exit
     (:func:`rejection_bounds`).  True on the CPU, where the plain version
     rejects nothing."""
     dev = torch.device(device)
@@ -355,8 +359,9 @@ _P = ctypes.c_void_p
 def _declare(lib: ctypes.CDLL) -> None:
     common = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I]
     scalars = [_F, _F, _F, _F, _F]
-    lib.power_map_value.argtypes = [*common, *scalars, _P, _P]
-    lib.power_map_value.restype = _I
+    for name in ("power_map_value", "power_map_value_seq"):
+        getattr(lib, name).argtypes = [*common, _F, _F, _F, *scalars, _P, _P]
+        getattr(lib, name).restype = _I
     for name in ("power_map_vag", "power_map_vag_seq"):
         getattr(lib, name).argtypes = [*common, _F, _F, _F, *scalars, _P, _P, _P]
         getattr(lib, name).restype = _I
@@ -418,47 +423,54 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(msg)
 
 
+def _launch_bounds(px, approx: bool, sigmoid: bool, grad: bool, alpha: float) -> tuple:
+    """``(tlo, thi, sat)`` of a redesigned kernel's launch on ``px``'s card:
+    :func:`rejection_bounds`, with the sigmoid's bands held on the card."""
+    return _bounds(alpha, _soft_mode(approx, sigmoid), grad,
+                   bool(not sigmoid or sigmoid_bands(px.device)))
+
+
+def _launch(name, grad: bool, px, py, txs, walls, kind, phi, scalars, inputs, approx,
+            sigmoid, counts):
+    """The map of kernel ``name`` on CUDA tensors (a value kernel, or with
+    ``grad`` a value and gradient kernel: ``(value, gradient)``);
+    ``counts[name]`` counts the launch."""
+    args = _launch_args(px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid)
+    host = [_host_float(v) for v in scalars]
+    tlo, thi, sat = _launch_bounds(px, approx, sigmoid, grad, host[0])
+    out = torch.empty_like(px)
+    outs = (out, torch.empty(px.numel(), 2, dtype=px.dtype, device=px.device)) if grad else (out,)
+    if px.numel() != 0:
+        lib = load_library()
+        with torch.cuda.device(px.device):
+            stream = torch.cuda.current_stream(px.device).cuda_stream
+            rc = getattr(lib, name)(*args, tlo, thi, sat, *host, *(o.data_ptr() for o in outs),
+                                    stream)
+        _check(rc, name)
+        counts[name] += 1
+    return outs if grad else out
+
+
 def value(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs, *,
           approx: bool, sigmoid: bool) -> torch.Tensor:
     """Value map ``[P]`` through ``power_map_value`` (CUDA tensors) or its
     plain version (CPU tensors)."""
     if _device_kind(px, "power_map_value") == "cpu":
         return plain_value(px, py, txs, walls, kind, phi, scalars, inputs)
-    args = _launch_args(px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid)
-    host = [_host_float(v) for v in scalars]
-    out = torch.empty_like(px)
-    if px.numel() == 0:
-        return out
-    lib = load_library()
-    with torch.cuda.device(px.device):
-        stream = torch.cuda.current_stream(px.device).cuda_stream
-        rc = lib.power_map_value(*args, *host, out.data_ptr(), stream)
-    _check(rc, "power_map_value")
-    LAUNCHES["power_map_value"] += 1
-    return out
+    return _launch("power_map_value", False, px, py, txs, walls, kind, phi, scalars, inputs,
+                   approx, sigmoid, LAUNCHES)
 
 
-def _vag_launch(name, px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid,
-                counts):
-    """``(value, gradient)`` of ``power_map_vag`` or its twin ``name`` on
-    CUDA tensors; ``counts[name]`` counts the launch."""
-    args = _launch_args(px, py, txs, walls, kind, phi, scalars, inputs, approx, sigmoid)
-    host = [_host_float(v) for v in scalars]
-    mode = _soft_mode(approx, sigmoid)
-    tlo, thi, sat = _bounds(host[0], mode, True,
-                            bool(not sigmoid or sigmoid_bands(px.device)))
-    out = torch.empty_like(px)
-    gout = torch.empty(px.numel(), 2, dtype=px.dtype, device=px.device)
-    if px.numel() == 0:
-        return out, gout
-    lib = load_library()
-    with torch.cuda.device(px.device):
-        stream = torch.cuda.current_stream(px.device).cuda_stream
-        rc = getattr(lib, name)(*args, tlo, thi, sat, *host, out.data_ptr(), gout.data_ptr(),
-                                stream)
-    _check(rc, name)
-    counts[name] += 1
-    return out, gout
+def twin_value(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs, *,
+               approx: bool, sigmoid: bool) -> torch.Tensor:
+    """:func:`value` through ``power_map_value_seq``, the sequential sweep
+    that the redesigned kernel must equal bit for bit (CUDA tensors; the
+    plain version on the CPU).  For checks only: the dispatch never calls
+    it."""
+    if _device_kind(px, "power_map_value_seq") == "cpu":
+        return plain_value(px, py, txs, walls, kind, phi, scalars, inputs)
+    return _launch("power_map_value_seq", False, px, py, txs, walls, kind, phi, scalars,
+                   inputs, approx, sigmoid, TWIN_LAUNCHES)
 
 
 def _device_kind(px, name: str) -> str:
@@ -476,8 +488,8 @@ def value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs,
     tensors) or its plain version (CPU tensors)."""
     if _device_kind(px, "power_map_vag") == "cpu":
         return plain_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs)
-    return _vag_launch("power_map_vag", px, py, txs, walls, kind, phi, scalars, inputs,
-                       approx, sigmoid, LAUNCHES)
+    return _launch("power_map_vag", True, px, py, txs, walls, kind, phi, scalars, inputs,
+                   approx, sigmoid, LAUNCHES)
 
 
 def twin_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs: KernelInputs,
@@ -488,8 +500,8 @@ def twin_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs: KernelIn
     calls it."""
     if _device_kind(px, "power_map_vag_seq") == "cpu":
         return plain_value_and_grad(px, py, txs, walls, kind, phi, scalars, inputs)
-    return _vag_launch("power_map_vag_seq", px, py, txs, walls, kind, phi, scalars, inputs,
-                       approx, sigmoid, TWIN_LAUNCHES)
+    return _launch("power_map_vag_seq", True, px, py, txs, walls, kind, phi, scalars, inputs,
+                   approx, sigmoid, TWIN_LAUNCHES)
 
 
 def occupancy(grad: bool, soft_mode: int, fast: bool, num_walls: int) -> int:

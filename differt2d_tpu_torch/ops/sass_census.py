@@ -10,8 +10,9 @@ each kernel's registers (``cuobjdump -res-usage``), its resident blocks per
 SM (the libraries' ``*_occupancy`` exports, which call
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and, from ``cuobjdump
 -sass``, the instructions on one pass of each innermost loop: the adam step
-of the solver kernels and the blocked test of the gradient kernels, by
-class (SFU ``MUFU``, FP32, integer, memory, control).  A pass follows the
+of the solver kernels and the blocked test of the value and gradient
+kernels (:func:`blocked_test`), by class (SFU ``MUFU``, FP32, integer,
+memory, control).  A pass follows the
 common path: a branch around a slow path (a region that calls a
 subroutine and holds no ``MUFU``: a division's or square root's, or the
 solver's ``slow_step``) is taken; a branch around a short region (at most
@@ -216,6 +217,42 @@ def kernel_loops(lib_path: str) -> dict:
     return out
 
 
+def blocked_test(loops: list, divisions: int) -> tuple:
+    """``(full test, rejected test)`` of a power-map kernel's blocked-test
+    loops (``kernel_loops``' ``loops``): the redesigned sweep's loops (those
+    with a bit scan, FLO) where it has them, else the sequential sweep's
+    (those with ``divisions`` reciprocals or more a pass besides the
+    sigmoid's, one a ``MUFU.EX2``: two for seg_margin, three for seg_vag).
+    A sequential pass that holds several tests (the loop unrolled) is
+    divided by their number, ``tests_a_pass``.  The rejected test is None
+    for the sequential sweep.  Each the median over the kernel's loops;
+    None, None where no loop qualifies."""
+    def tests(p):
+        return max(1, (p.get("MUFU.RCP", 0) - p.get("MUFU.EX2", 0)) // divisions)
+
+    fast = [loop for loop in loops if any(k.startswith("FLO") for p in loop for k in p)]
+    seq = [loop for loop in loops
+           if any(p.get("MUFU.RCP", 0) - p.get("MUFU.EX2", 0) >= divisions for p in loop)]
+    chosen = fast or seq
+    if not chosen:
+        return None, None
+
+    def median(pick):
+        p = sorted((pick(loop, key=lambda q: q["total"]) for loop in chosen),
+                   key=lambda q: q["total"])[len(chosen) // 2]
+        n = 1 if fast else tests(p)
+        return {**{k: v / n for k, v in p.items()}, "tests_a_pass": n}
+
+    return median(max), (median(min) if fast else None)
+
+
+def divisions_of(kernel: str) -> int:
+    """Divisions of one sequential blocked test of ``power_map_kernel<G,
+    SOFT, FAST>``: three where it is seg_vag (soft logic with the gradient),
+    two where it is seg_margin."""
+    return 3 if kernel.startswith("power_map_kernel<true") and ", 0, " not in kernel else 2
+
+
 def short_name(name: str) -> str:
     """``opt_solver_kernel<1, 1, true>`` from a demangled signature
     (either demangler's spelling of the template arguments)."""
@@ -227,8 +264,8 @@ def short_name(name: str) -> str:
 
 def census(out_path: Optional[str] = None) -> dict:
     """Registers, blocks per SM and loop passes of the solver kernels and
-    of the gradient kernels (the redesign and its twin), as printed by
-    :func:`main`."""
+    of the value and gradient kernels (each redesign and its twin), as
+    printed by :func:`main`."""
     import torch
 
     from . import _build
@@ -247,9 +284,10 @@ def census(out_path: Optional[str] = None) -> dict:
                 occ[f"opt_solver_kernel<{soft}, {osk.OBJECTIVES[objective]},"
                     f" {'true' if fast else 'false'}>"] = osk.occupancy(objective, soft, fast, 5)
     for soft in (0, 1, 2):
-        occ[f"power_map_kernel<false, {soft}, false>"] = pmk.occupancy(False, soft, False, 7)
-        occ[f"power_map_kernel<true, {soft}, false>"] = pmk.occupancy(True, soft, False, 7)
-        occ[f"power_map_kernel<true, {soft}, true>"] = pmk.occupancy(True, soft, True, 7)
+        for grad in (False, True):
+            for fast in (False, True):
+                occ[f"power_map_kernel<{str(grad).lower()}, {soft}, {str(fast).lower()}>"] = (
+                    pmk.occupancy(grad, soft, fast, 7))
     result["blocks_per_sm"] = occ
     if out_path:
         with open(out_path, "w") as f:
@@ -269,6 +307,11 @@ def main() -> int:
             for n, loop in enumerate(k["loops"]):
                 for p in loop:
                     print(f"  loop {n}: " + ", ".join(f"{c} {v}" for c, v in sorted(p.items())))
+            if name.startswith("power_map_kernel<"):
+                full, rej = blocked_test(k["loops"], divisions_of(name))
+                for what, p in (("blocked test", full), ("rejected test", rej)):
+                    if p is not None:
+                        print(f"  {what}: " + ", ".join(f"{c} {v}" for c, v in sorted(p.items())))
     for name, blocks in result["blocks_per_sm"].items():
         print(f"blocks per SM, {name}: {blocks}")
     print(f"written to {out}")

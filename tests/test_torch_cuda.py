@@ -10,7 +10,9 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 inputs: values at rtol 1e-4 / atol 1e-5, gradients under the kink contract
 at rtol 1e-3 / atol 1e-5.  The looped kernels' culled maps must also equal
 their identity-table maps bit for bit, and the redesigned looped kernels
-their sequential twins (``power_map_looped_value_seq`` / ``_vag_seq``).
+their sequential twins (``power_map_looped_value_seq`` / ``_vag_seq``), and
+the redesigned unrolled and solver kernels theirs (``power_map_value_seq``,
+``power_map_vag_seq``, ``opt_solver_value_seq``).
 """
 
 import pytest
@@ -408,7 +410,9 @@ def test_redesigned_solver_kernel_equals_its_twin(cuda, case):
     assert float(v.nan_to_num().abs().sum()) > 0.0
 
 
-def _vag_twins(scene, n, kw, dev):
+def _unrolled_request(scene, n, kw, dev):
+    """The unrolled wrappers' arguments and keywords for ``power_map(scene,
+    X, Y, **kw)`` on an ``n`` x ``n`` grid."""
     o = {**tr._OPTIONS, **kw}
     groups = tr._groups_for(scene, o)
     sig = o["function"] is sigmoid
@@ -419,7 +423,24 @@ def _vag_twins(scene, n, kw, dev):
     args = (X.reshape(-1).contiguous(), Y.reshape(-1).contiguous(), txs, scene.walls,
             scene.kind, scene.phi, tuple(o[k] for k in tr._SCALAR_NAMES),
             pmk.kernel_inputs(groups, dev, approx=o["approx"], sigmoid=sig))
-    kkw = dict(approx=o["approx"], sigmoid=sig)
+    return args, dict(approx=o["approx"], sigmoid=sig)
+
+
+def _value_twins(args, kkw):
+    """power_map_value against power_map_value_seq on the same inputs: one
+    launch each, torch.equal (NaN where NaN), and a map that is not all
+    zero."""
+    before, twins = pmk.LAUNCHES["power_map_value"], pmk.TWIN_LAUNCHES["power_map_value_seq"]
+    v, tv = pmk.value(*args, **kkw), pmk.twin_value(*args, **kkw)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES["power_map_value"] == before + 1
+    assert pmk.TWIN_LAUNCHES["power_map_value_seq"] == twins + 1
+    assert _same(v, tv)
+    assert float(v.nan_to_num().abs().sum()) > 0.0
+
+
+def _vag_twins(scene, n, kw, dev):
+    args, kkw = _unrolled_request(scene, n, kw, dev)
     before, twins = pmk.LAUNCHES["power_map_vag"], pmk.TWIN_LAUNCHES["power_map_vag_seq"]
     (v, g), (tv, tg) = pmk.value_and_grad(*args, **kkw), pmk.twin_value_and_grad(*args, **kkw)
     torch.cuda.synchronize()
@@ -443,21 +464,49 @@ _VAG_TWIN_CASES = {
 }
 
 
+def _twin_case_scene(name, dev):
+    return {
+        "basic": lambda: Scene.basic_scene(device=dev),
+        "mixed": lambda: Scene.square_scene(device=dev).add_ris(
+            [[0.5, 0.3], [0.5, 0.7]]).add_vertex([0.25, 0.75]),
+        "two_tx": lambda: Scene.basic_scene(device=dev).update_transmitters(tx2=[0.8, 0.8]),
+        "duplicated": lambda: _duplicated_wall(dev),
+        "short": lambda: _short_walls(dev),
+    }[name]()
+
+
 @pytest.mark.parametrize("case", sorted(_VAG_TWIN_CASES))
 def test_redesigned_vag_kernel_equals_its_twin(cuda, case):
     """power_map_vag (the looped kernels' redesigned sweep over all walls)
     against power_map_vag_seq, the sequential sweep, bit for bit on value
-    and gradient, on a 48 x 48 grid (a ragged last warp)."""
+    and gradient, on a 47 x 47 grid (a ragged last warp)."""
     name, kw = _VAG_TWIN_CASES[case]
-    scene = {
-        "basic": lambda: Scene.basic_scene(device=cuda),
-        "mixed": lambda: Scene.square_scene(device=cuda).add_ris(
-            [[0.5, 0.3], [0.5, 0.7]]).add_vertex([0.25, 0.75]),
-        "two_tx": lambda: Scene.basic_scene(device=cuda).update_transmitters(tx2=[0.8, 0.8]),
-        "duplicated": lambda: _duplicated_wall(cuda),
-        "short": lambda: _short_walls(cuda),
-    }[name]()
-    _vag_twins(scene, 47, kw, cuda)
+    _vag_twins(_twin_case_scene(name, cuda), 47, kw, cuda)
+
+
+@pytest.mark.parametrize("case", sorted(_VAG_TWIN_CASES))
+def test_redesigned_value_kernel_equals_its_twin(cuda, case):
+    """power_map_value (the sweep's margin form over all walls) against
+    power_map_value_seq, the sequential sweep, bit for bit, on a 47 x 47
+    grid (a ragged last warp)."""
+    name, kw = _VAG_TWIN_CASES[case]
+    _value_twins(*_unrolled_request(_twin_case_scene(name, cuda), 47, kw, cuda))
+
+
+@pytest.mark.parametrize("mode", ["hard_sigmoid", "sigmoid"])
+def test_redesigned_value_kernel_on_the_line_of_sight_group(cuda, mode):
+    """The line-of-sight group of a Fermat map of ``square_scene`` at orders
+    0-1 (the group the solver route sends to power_map_value), the redesign
+    against its twin, bit for bit, on a 65 x 65 grid from 0 to 1."""
+    sq = Scene.square_scene(device=cuda)
+    o = {**tr._OPTIONS, "order": None, "min_order": 0, "max_order": 1, "solver": "fermat",
+         "steps": 100, "approx": True, "key": prng.PRNGKey(1234),
+         **({"function": sigmoid} if mode == "sigmoid" else {})}
+    x = torch.linspace(0.0, 1.0, 65, device=cuda)
+    X, Y = torch.meshgrid(x, x, indexing="xy")
+    args = osk.solver_request(sq, X, Y, tr._groups_for(sq, o), **tr._solver_options(o))
+    assert args[-1].los is not None
+    _value_twins((*args[:-1], args[-1].los), dict(approx=True, sigmoid=mode == "sigmoid"))
 
 
 @pytest.mark.parametrize("mode", ["hard_sigmoid", "sigmoid"])

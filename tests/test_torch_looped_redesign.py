@@ -10,9 +10,14 @@
   the gradient.
 * The tiles' work list is a permutation of the tiles, longest first, and
   its counts equal a count made candidate by candidate.
-* The sequential twins (the looped kernels', ``opt_solver_value_seq`` and
-  ``power_map_vag_seq``) stay out of the dispatch: ``tracer.py`` and the
-  wrappers it calls never name them.
+* On the unrolled value kernel's own inputs (the basic scene and a
+  24-wall slice of ``city_scene``, stream proxy 1,176, at the top of its
+  route), skipping the rejected tests leaves ``1 - act`` of every
+  candidate's maximum margin as the sequential sweep leaves it, bit for
+  bit (the margin form of ``fast_sweep``).
+* The sequential twins (the looped kernels', ``opt_solver_value_seq``,
+  ``power_map_value_seq`` and ``power_map_vag_seq``) stay out of the
+  dispatch: ``tracer.py`` and the wrappers it calls never name them.
 * The CUDA sources' constants and exports match the wrappers'.
 * Scenes with walls too short for the culling boxes keep culled ==
   identity tables.
@@ -210,6 +215,85 @@ def test_tile_work_list_is_longest_first(name, max_order):
         assert int(tests[t]) == _brute_tests(plan, inputs, scene.kind, t)
 
 
+def _city_slice(n_walls):
+    """The first ``n_walls`` walls of ``Scene.city_scene()`` with its
+    transmitter: 24 walls (six buildings) give the stream proxy 24 + 2 x 24^2
+    = 1,176 at order 1, just under the unrolled value route's 1,200."""
+    city = Scene.city_scene(device="cpu")
+    return Scene.from_arrays(city.walls[:n_walls], transmitters=dict(city.transmitters),
+                             receivers=dict(city.receivers), device="cpu")
+
+
+def _act_complement(m, mode):
+    """``1 - act(m)`` as the value kernel's validity forms it from the
+    running maximum margin ``m`` (hard logic: whether the path is clear)."""
+    if mode == SOFT_NONE:
+        return (~(m > 0)).float()
+    if mode == SOFT_HARD:
+        return 1.0 - torch.clamp(torch.clamp(m, 0.0, 6.0) / 6.0, 0.0, 1.0)
+    return 1.0 - torch.clamp(torch.sigmoid(m), 0.0, 1.0)
+
+
+@pytest.mark.parametrize("mode", [SOFT_NONE, SOFT_HARD, SOFT_SIGMOID])
+@pytest.mark.parametrize("name", ["basic", "city_slice_24"])
+def test_value_kernel_rejection_on_its_own_inputs(name, mode):
+    """The margin form of the redesigned value kernel (power_map_value) on
+    its own inputs: per pixel and candidate, the numerators and the
+    denominator of every blocked test, formed in float32 as the kernel forms
+    them (``_terms``, from the image method's bounce points), are rejected
+    by ``pmk.rejects`` with ``rejection_bounds(alpha, mode, grad=False)``;
+    then ``1 - act`` of the maximum over the unrejected tests' margins
+    equals ``1 - act`` of the maximum over all tests' margins, bit for bit
+    (NaN where NaN; tolerance zero), and the rejection skips tests."""
+    from differt2d_tpu_torch import eager
+    from differt2d_tpu_torch.rt import path_candidate_matrices
+
+    scene = Scene.basic_scene(device="cpu") if name == "basic" else _city_slice(24)
+    W = scene.num_objects
+    assert tracer.stream_proxy(path_candidate_matrices(W, 0, 1), W) == (
+        105 if name == "basic" else 1176)
+    alpha = 100.0
+    tlo, thi, _ = pmk.rejection_bounds(alpha, mode, False)
+    x = torch.linspace(0.03, 0.97, 12)
+    X, Y = torch.meshgrid(x, x, indexing="xy")
+    rx = torch.stack([X.reshape(-1), Y.reshape(-1)], dim=-1)[:, None, :]
+    tx = next(iter(scene.transmitters.values())).reshape(1, 1, 2)
+    walls = scene.walls
+    pa, pb = walls[:, 0], walls[:, 1]  # patch 0: the grown ends are the ends
+    ids = torch.arange(W)
+    rejected = tested = 0
+    for o in (0, 1):
+        if o == 0:
+            pts = torch.cat([tx.expand(rx.shape[0], 1, 2)[:, :, None], rx[:, :, None]], dim=2)
+            own = torch.full((1, 1), -1)
+        else:
+            cw = walls[:, None]
+            b = eager._solve_image(tx, rx, cw, scene.kind[:, None])
+            pts = torch.cat([tx.expand(b.shape[0], W, 2)[:, :, None], b,
+                             rx.expand(b.shape[0], W, 2)[:, :, None]], dim=2)
+            own = ids[:, None]
+        P, C = pts.shape[:2]
+        every = torch.full((P, C), -float("inf"))
+        kept = every.clone()
+        for seg in range(o + 1):
+            c = pts[:, :, seg, None, :].expand(P, C, W, 2).reshape(-1, 2)
+            d = pts[:, :, seg + 1, None, :].expand(P, C, W, 2).reshape(-1, 2)
+            num_a, num_b, den = _terms(c, d, pa.repeat(P * C, 1), pb.repeat(P * C, 1))
+            m = _margin(num_a, num_b, den, alpha, mode).reshape(P, C, W)
+            rej = pmk.rejects(num_a, num_b, den, tlo, thi).reshape(P, C, W)
+            # The candidate's own wall is not tested against its segments.
+            tests = (ids[None, :] != own).expand(C, W)[None].expand(P, C, W)
+            every = torch.maximum(every, torch.where(tests, m, -float("inf")).amax(-1))
+            kept = torch.maximum(kept, torch.where(tests & ~rej, m, -float("inf")).amax(-1))
+            rejected += int((rej & tests).sum())
+            tested += int(tests.sum())
+        got, ref = _act_complement(kept, mode), _act_complement(every, mode)
+        assert torch.equal(got.isnan(), ref.isnan())
+        assert torch.equal(got.nan_to_num(), ref.nan_to_num()), (
+            f"order {o}: {int((got != ref).sum())} candidate-pixels differ")
+    assert 0 < rejected < tested
+
+
 _TWINS = {  # the wrapper module, its dispatching callables, the kernels' names
     "looped": (pml, ("value", "value_and_grad", "power_map_looped", "LoopedMapFunction",
                      "_launch"),
@@ -217,15 +301,17 @@ _TWINS = {  # the wrapper module, its dispatching callables, the kernels' names
                {"power_map_looped_value_seq", "power_map_looped_vag_seq"}),
     "solver": (osk, ("value", "full_value", "solver_map", "SolverMapFunction"),
                {"opt_solver_value"}, {"opt_solver_value_seq"}),
+    # The unrolled kernels (power_map.cu): the value and the gradient kernel.
     "vag": (pmk, ("value", "value_and_grad", "power_map_kernel", "PowerMapFunction"),
-            {"power_map_value", "power_map_vag"}, {"power_map_vag_seq"}),
+            {"power_map_value", "power_map_vag"}, {"power_map_value_seq", "power_map_vag_seq"}),
 }
 
 
 @pytest.mark.parametrize("family", sorted(_TWINS))
 def test_sequential_twins_stay_out_of_the_dispatch(family):
     """tracer.py and the wrappers it calls never name a sequential twin
-    (power_map_looped_*_seq, opt_solver_value_seq, power_map_vag_seq)."""
+    (power_map_looped_*_seq, opt_solver_value_seq, power_map_value_seq,
+    power_map_vag_seq)."""
     with open(inspect.getsourcefile(tracer)) as f:
         src = f.read()
     assert "_seq" not in src and "twin" not in src
@@ -243,8 +329,9 @@ _SOURCES = {  # the CUDA source, its exports, the wrapper module
                                        "sigmoid_band_probe"), pml),
     "solver": ("opt_solver.cu", ("opt_solver_value", "opt_solver_value_seq",
                                  "opt_solver_occupancy"), osk),
-    "vag": ("power_map.cu", ("power_map_value", "power_map_vag", "power_map_vag_seq",
-                             "power_map_occupancy", "power_map_sigmoid_band_probe"), pmk),
+    "vag": ("power_map.cu", ("power_map_value", "power_map_value_seq", "power_map_vag",
+                             "power_map_vag_seq", "power_map_occupancy",
+                             "power_map_sigmoid_band_probe"), pmk),
 }
 
 

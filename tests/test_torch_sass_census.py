@@ -58,3 +58,28 @@ def test_short_names_and_classes():
     assert sc.klass("MUFU.RCP") == "sfu" and sc.klass("FFMA") == "fp32"
     assert sc.klass("LDS.128") == "memory" and sc.klass("BSSY") == "control"
     assert sc.opcode("@!P0 BRA 0x70") == "BRA" and sc.klass("IADD3") == "integer"
+
+
+def _pass(total, **ops):
+    return {"total": total, **ops}
+
+
+def test_blocked_test_picks_the_sweep_and_counts_one_test():
+    # A sequential value loop unrolled by 2 (seg_margin: two divisions a
+    # test), and another loop with no division.
+    seq = [[_pass(146, **{"MUFU.RCP": 4})], [_pass(20)]]
+    full, rej = sc.blocked_test(seq, sc.divisions_of("power_map_kernel<false, 1, false>"))
+    assert full["total"] == 73 and full["MUFU.RCP"] == 2 and full["tests_a_pass"] == 2
+    assert rej is None
+    # The sigmoid's reciprocals (one a MUFU.EX2) are not the test's.
+    sig = [[_pass(248, **{"MUFU.RCP": 7, "MUFU.EX2": 4})]]
+    full, _ = sc.blocked_test(sig, sc.divisions_of("power_map_kernel<true, 2, false>"))
+    assert full["total"] == 248 and full["tests_a_pass"] == 1
+    # The redesigned sweep's loop (a bit scan) wins over the sequential one:
+    # its longest pass is a full test, its shortest a rejected one.
+    fast = [[_pass(94, **{"FLO.U32.SH": 1, "MUFU.RCP": 2}), _pass(45, **{"FLO.U32.SH": 1})]]
+    full, rej = sc.blocked_test(seq + fast, 2)
+    assert (full["total"], rej["total"]) == (94, 45)
+    assert sc.blocked_test([[_pass(20)]], 2) == (None, None)
+    assert sc.divisions_of("power_map_kernel<true, 1, true>") == 3
+    assert sc.divisions_of("power_map_kernel<true, 0, false>") == 2
