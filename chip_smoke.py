@@ -127,6 +127,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     at order 2, whose stream proxies bracket 400 and 1,200, the unrolled
     kernels against the looped route (kernel alone, and table build plus
     kernel), value and value + gradient, each pair held against each other.
+22. the object API: ``Scene.basic_scene().accumulate_on_receivers_grid_over_paths(X,
+    Y, received_power, reduce_all=True, approx=True)`` at 1024 x 1024, as a
+    value and as a value + gradient map, the iterator form with two
+    transmitters, ``city_extract_scene`` at order <= 1 and the RIS map of
+    phase 11 through ``path_cls=MinPath`` (1000 steps, RIS-only filter,
+    key ``PRNGKey(1234)``): the launch counters are zeroed before each map
+    and read after it, only the expected kernel may run (B1, B2, the looped
+    value kernel, B6) and no eager tracer, and each map is ``torch.equal``
+    to ``power_map`` of the same request; a 32 x 32 request with a path
+    function of the user's (the general path: the object API per pixel
+    under ``torch.func.vmap``) held against the fast path at the JAX
+    package's tolerances; each accumulator timed against ``power_map``
+    (CUDA events), and the RIS map against the same map with the filter
+    copying the walls to the host, as the records before the object views
+    did.
+23. the gradient modes: cfg3's transmitter step (``bench.py:628-700``:
+    MPT paths on ``square_scene_with_wall`` through
+    ``accumulate_over_paths``, 100 solver steps, alpha 50, adam 0.01) in
+    its three modes, unrolled, implicit and forward
+    (``optimize.value_and_grad_fwd``), each timed per step with CUDA
+    events; forward against unrolled at rtol 1e-5 / atol 1e-6, implicit
+    against unrolled at rtol 5e-2 / atol 1e-3; cfg5's RIS phase step
+    (``bench.py:896-928``, a 16 x 16 order-1 MPT map, 100 steps) in forward
+    and reverse mode, the solver kernel's counter moving in both,
+    forward against reverse at rtol 1e-5 / atol 1e-6.
 
     Phases 10 and 18 time each looped kernel against its twin in turns
     (twin, new, new, twin) and bound it by the work these inputs need
@@ -217,6 +242,21 @@ def assert_close(name, got, ref, tol=VALUE_TOL) -> float:
     check(ok, f"{name}: max abs err {err} beyond {tol} (worst ratio {worst:.3g})")
     print(f"  {name}: max abs err {err:.3g}, worst err/allowance {worst:.3g}", flush=True)
     return err
+
+
+def assert_within_kinks(name, got, ref, tol) -> None:
+    """``got`` within ``tol`` of ``ref`` but for at most ``max(4, 0.5%)`` of
+    the elements (``kink_excess``'s allowance)."""
+    import torch
+
+    from differt2d_tpu_torch.utils import kink_excess
+
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"{name}: bad values")
+    n_bad, allowed = kink_excess(got, ref, **tol)
+    check(n_bad <= allowed, f"{name}: {n_bad} elements beyond {tol}, allowance {allowed:.0f}")
+    worst = float(((got - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())).max().detach())
+    print(f"  {name}: {n_bad} elements beyond {tol} (allowed {allowed:.0f}); max abs err"
+          f" {max_abs(got, ref):.3g}, worst err/allowance {worst:.3g}", flush=True)
 
 
 def assert_kinks(name, got, ref) -> float:
@@ -681,6 +721,10 @@ def main() -> int:
     twin_phase(dev)
     redesign_phase(dev)
     value_router_phase(dev)
+    for number, phase in ((22, object_phase), (23, gradient_phase)):
+        t0 = time.perf_counter()
+        phase(dev, card)
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -1927,6 +1971,264 @@ def solver_phases(dev, peak_fp32: float) -> list:
             })
     print("library_ms: null -- no single PyTorch call computes the solve", flush=True)
     return rows
+
+
+def object_phase(dev, card: str) -> None:
+    """Phase 22: the object API's grid accumulators on the card."""
+    import math
+
+    import torch
+
+    from differt2d_tpu_torch import RIS, MinPath, Scene, eager, power_map, prng, received_power
+    from differt2d_tpu_torch.ops import opt_solver_kernel as osk
+    from differt2d_tpu_torch.ops import power_map_kernel as pmk
+    from differt2d_tpu_torch.ops import power_map_looped as pml
+
+    def counted(fn):
+        """``(fn(), launches)``: every counter zeroed before, read after; the
+        eager tracer's groups counted too."""
+        for mod in (pmk, pml, osk):
+            mod.reset_launches()
+        traced = []
+        trace_group = eager._trace_group
+        eager._trace_group = lambda *a, **k: traced.append(1) or trace_group(*a, **k)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            eager._trace_group = trace_group
+        launches = {**pmk.LAUNCHES, **pml.LAUNCHES, **osk.LAUNCHES, "eager groups": len(traced)}
+        return out, {k: v for k, v in launches.items() if v}
+
+    def expect(name, launches, kernel, count=1):
+        print(f"  {name}: launches {launches}", flush=True)
+        check(launches == {kernel: count},
+              f"{name}: expected {count} launch(es) of {kernel} alone, got {launches}")
+
+    def equal(name, got, ref):
+        pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+        for a, b in pairs:
+            check(bool(torch.isfinite(a).all()), f"{name}: non-finite values")
+            check(torch.equal(a, b), f"{name}: differs from power_map at"
+                                     f" {int((a != b).sum())} elements")
+        print(f"  {name}: torch.equal to power_map of the same request", flush=True)
+
+    n = 1024
+    X, Y = grid(n, dev)
+    basic = Scene.basic_scene()
+    acc = basic.accumulate_on_receivers_grid_over_paths
+    kw = dict(reduce_all=True, approx=True)
+    timing = []
+    for name, vag, kernel in (("basic 1024^2 value", False, "power_map_value"),
+                              ("basic 1024^2 value + gradient", True, "power_map_vag")):
+        got, launches = counted(lambda: acc(X, Y, received_power, value_and_grad=vag, **kw))
+        expect(name, launches, kernel)
+        equal(name, got, power_map(basic, X, Y, approx=True, value_and_grad=vag))
+        timing.append((name, lambda vag=vag: acc(X, Y, received_power, value_and_grad=vag, **kw),
+                       lambda vag=vag: power_map(basic, X, Y, approx=True, value_and_grad=vag)))
+    two = basic.update_transmitters(tx2=[0.8, 0.8])
+    got, launches = counted(lambda: list(two.accumulate_on_receivers_grid_over_paths(
+        X, Y, received_power, approx=True)))
+    expect("iterator form, two transmitters", launches, "power_map_value", 2)
+    check([name for name, _ in got] == ["tx", "tx2"], "iterator form: wrong names")
+    for name, Z in got:
+        equal(f"iterator form, {name}", Z, power_map(two.with_transmitters(**{name: two.transmitters[name]}),
+                                                   X, Y, approx=True))
+
+    Xc, Yc = city_grid(n, dev)
+    city = Scene.city_extract_scene()
+    got, launches = counted(lambda: city.accumulate_on_receivers_grid_over_paths(
+        Xc, Yc, received_power, reduce_all=True, max_order=1, approx=True))
+    expect("city extract 1024^2, order <= 1", launches, "power_map_looped_value")
+    equal("city extract 1024^2, order <= 1", got, power_map(city, Xc, Yc, max_order=1, approx=True))
+    timing.append(("city extract 1024^2",
+                   lambda: city.accumulate_on_receivers_grid_over_paths(
+                       Xc, Yc, received_power, reduce_all=True, max_order=1, approx=True),
+                   lambda: power_map(city, Xc, Yc, max_order=1, approx=True)))
+
+    key = prng.PRNGKey(1234)
+    ris = Scene.square_scene().add_ris([[0.5, 0.3], [0.5, 0.7]], phi=math.pi / 4)
+    ris_kw = dict(reduce_all=True, order=1, approx=True, key=key, path_cls=MinPath,
+                  path_cls_kwargs={"steps": 1000}, filter_objects=lambda o: isinstance(o, RIS))
+    phase11 = dict(order=1, solver="mpt", steps=1000, approx=True, key=key,
+                   filter_objects=lambda o: o.kind == 1)
+    got, launches = counted(lambda: ris.accumulate_on_receivers_grid_over_paths(
+        Xc, Yc, received_power, **ris_kw))
+    expect("RIS MinPath 1024^2, 1000 steps", launches, "opt_solver_value")
+    equal("RIS MinPath 1024^2 (phase 11's map)", got, power_map(ris, Xc, Yc, **phase11))
+    timing.append(("RIS MinPath 1024^2",
+                   lambda: ris.accumulate_on_receivers_grid_over_paths(Xc, Yc, received_power,
+                                                                       **ris_kw),
+                   lambda: power_map(ris, Xc, Yc, **phase11)))
+
+    # The general path: a path function of the user's, held against the
+    # fast path at the JAX package's tolerances (tests/test_tracer.py),
+    # under PARITY.md's kink allowance: the object path's ImagePath forms
+    # the bounce as the reference's object does (vn u / un), the batched
+    # tracer as its tracer does ((vn / un) u), and where a bounce lands
+    # within an ulp of a wall's end the soft validity (slope alpha / 6)
+    # turns that rounding into 1e-5 of the power.
+    def general_power(*args, **kwargs):
+        return received_power(*args, **kwargs)
+
+    Xg, Yg = grid(32, dev)
+    image_tol = dict(rtol=2e-5, atol=1e-6)
+    for name, sc, req, tol in (
+        ("basic 32^2 value", basic, kw, image_tol),
+        ("basic 32^2 value + gradient", basic, dict(kw, value_and_grad=True),
+         (image_tol, dict(rtol=2e-4, atol=1e-5))),
+        ("RIS MinPath 32^2, 100 steps", ris, dict(ris_kw, path_cls_kwargs={"steps": 100}),
+         dict(rtol=2e-4, atol=1e-5)),
+    ):
+        call = sc.accumulate_on_receivers_grid_over_paths
+        t0 = time.perf_counter()
+        slow, launches = counted(lambda: call(Xg, Yg, general_power, **req))
+        slow_s = time.perf_counter() - t0
+        check(not launches, f"general path {name}: launched {launches}")
+        fast = call(Xg, Yg, received_power, **req)
+        if isinstance(slow, tuple):
+            assert_within_kinks(f"general path {name} (value) vs fast", slow[0], fast[0], tol[0])
+            assert_within_kinks(f"general path {name} (gradient) vs fast", slow[1], fast[1],
+                                tol[1])
+        else:
+            assert_within_kinks(f"general path {name} vs fast", slow, fast, tol)
+        print(f"  general path {name}: {slow_s:.3f} s (host clock, one call) [{card}]", flush=True)
+
+    # Accumulator against power_map, in turns (CUDA events).
+    for name, via_acc, via_map in timing:
+        k, reps = (8, 3)
+        ms, map_ms, turns = twin_times(via_acc, via_map, k, reps)
+        print(f"accumulator {name}: {ms:.4f} ms/map against power_map {map_ms:.4f} ms/map"
+              f" (turns power_map, accumulator, accumulator, power_map:"
+              f" {', '.join(f'{x:.4f}' for x in turns)}) [{card}]", flush=True)
+
+    # The RIS map with the filter as it was before the object views: the
+    # scene's walls and phases copied to the host on every pass over the
+    # objects (the records of the previous Scene.objects).
+    def copying(o):
+        if o is ris.objects[0]:
+            ris.walls.detach().cpu().numpy()
+            ris.phi.detach().cpu().numpy()
+        return o.kind == 1
+
+    ms, old_ms, turns = twin_times(lambda: power_map(ris, Xc, Yc, **phase11),
+                                   lambda: power_map(ris, Xc, Yc, **{**phase11,
+                                                                     "filter_objects": copying}),
+                                   8, 3)
+    print(f"RIS map 1024^2 end to end: {ms:.4f} ms/map with the object views against {old_ms:.4f}"
+          f" ms/map with the filter copying the walls to the host (turns copying, views, views,"
+          f" copying: {', '.join(f'{x:.4f}' for x in turns)}) [{card}]", flush=True)
+
+
+def _adam(lr: float):
+    """``optax.chain(adam(lr), zero_nans())``'s update, as the bench steps
+    take it: ``step(x, g) -> x``."""
+    import torch
+
+    state = {"t": 0, "m": None, "v": None}
+
+    def step(x, g):
+        g = torch.nan_to_num(g, nan=0.0)
+        state["t"] += 1
+        t = state["t"]
+        m = state["m"] = g * 0.1 + (0.9 * state["m"] if state["m"] is not None else 0.0)
+        v = state["v"] = g * g * 0.001 + (0.999 * state["v"] if state["v"] is not None else 0.0)
+        return x - lr * (m / (1 - 0.9**t)) / (torch.sqrt(v / (1 - 0.999**t)) + 1e-8)
+
+    return step
+
+
+def gradient_phase(dev, card: str) -> None:
+    """Phase 23: cfg3's and cfg5's optimisation steps in their gradient
+    modes on the card."""
+    import torch
+
+    from differt2d_tpu_torch import RIS, MinPath, Point, Scene, optimize, power_map, prng
+    from differt2d_tpu_torch import received_power
+    from differt2d_tpu_torch.ops import opt_solver_kernel as osk
+
+    key = prng.PRNGKey(1234)
+    wall_scene = Scene.square_scene_with_wall()
+
+    def cfg3_loss(tx, implicit=False):
+        s = wall_scene.with_transmitters(tx=Point(xy=tx))
+        return -s.accumulate_over_paths(
+            received_power, reduce_all=True, max_order=1, approx=True, alpha=50.0,
+            path_cls=MinPath, path_cls_kwargs={"steps": 100, "implicit": implicit}, key=key)
+
+    def reverse(loss):
+        def vag(x):
+            x = x.detach().requires_grad_(True)
+            v = loss(x)
+            return v.detach(), torch.autograd.grad(v, x)[0]
+        return vag
+
+    modes = {
+        "unrolled": reverse(cfg3_loss),
+        "implicit": reverse(lambda x: cfg3_loss(x, implicit=True)),
+        "forward": optimize.value_and_grad_fwd(cfg3_loss),
+    }
+    # Steps per mode: the object path launches thousands of tiny kernels a
+    # step (5 candidates x 100 adam steps), forward mode twice over with
+    # torch.func's host work on top, so the modes run as many steps as fit
+    # the phase's time.
+    steps = {"unrolled": 3, "implicit": 3, "forward": 1}
+    first = {}
+    for mode, vag in modes.items():
+        tx = torch.tensor([0.3, 0.6], device=dev)
+        update = _adam(0.01)
+        times = []
+        for i in range(steps[mode]):
+            (v, g), ms = timed(lambda: vag(tx))
+            times.append(ms / 1e3)
+            if i == 0:
+                first[mode] = (v, g)
+            tx = update(tx, g)
+        check(bool(torch.isfinite(first[mode][1]).all()), f"cfg3 {mode}: non-finite gradient")
+        print(f"cfg3 TX step, {mode}: {statistics.median(times):.4f} s/step (median of"
+              f" {len(times)}; first {times[0]:.4f} s), loss {float(first[mode][0]):.6g},"
+              f" gradient {first[mode][1].tolist()} [{card}]", flush=True)
+    assert_close("cfg3 forward vs unrolled gradient", first["forward"][1], first["unrolled"][1],
+                 dict(rtol=1e-5, atol=1e-6))
+    assert_close("cfg3 implicit vs unrolled gradient", first["implicit"][1], first["unrolled"][1],
+                 dict(rtol=5e-2, atol=1e-3))
+    assert_close("cfg3 forward vs unrolled loss", first["forward"][0].reshape(1),
+                 first["unrolled"][0].reshape(1), dict(rtol=1e-6, atol=1e-7))
+
+    base = Scene.square_scene()
+    x = torch.linspace(0.05, 0.45, 16, device=dev)
+    y = torch.linspace(0.05, 0.95, 16, device=dev)
+    Xr, Yr = torch.meshgrid(x, y, indexing="xy")
+
+    def cfg5_loss(phi):
+        s = base.add_objects(RIS(xys=torch.tensor([[0.5, 0.3], [0.5, 0.7]], device=dev), phi=phi))
+        Z = power_map(s, Xr, Yr, order=1, solver="mpt", steps=100, approx=True, key=key,
+                      filter_objects=lambda o: isinstance(o, RIS))
+        return -torch.sum(Z)
+
+    results = {}
+    for mode, vag in (("forward", optimize.value_and_grad_fwd(cfg5_loss)),
+                      ("reverse", reverse(cfg5_loss))):
+        phi = torch.tensor(0.5, device=dev)
+        update = _adam(0.05)
+        times = []
+        for i in range(3):
+            osk.reset_launches()
+            (v, g), ms = timed(lambda: vag(phi))
+            check(osk.LAUNCHES["opt_solver_value"] >= 1,
+                  f"cfg5 {mode}: opt_solver_value did not run")
+            times.append(ms / 1e3)
+            if i == 0:
+                results[mode] = (v, g)
+            phi = update(phi, g)
+        print(f"cfg5 RIS phase step, {mode}: {statistics.median(times):.4f} s/step (median of 3;"
+              f" first {times[0]:.4f} s), loss {float(results[mode][0]):.6g}, d/dphi"
+              f" {float(results[mode][1]):.6g}, opt_solver_value launched in every step"
+              f" [{card}]", flush=True)
+    assert_close("cfg5 forward vs reverse d/dphi", results["forward"][1].reshape(1),
+                 results["reverse"][1].reshape(1), dict(rtol=1e-5, atol=1e-6))
+    assert_close("cfg5 forward vs reverse loss", results["forward"][0].reshape(1),
+                 results["reverse"][0].reshape(1), dict(rtol=1e-6, atol=1e-7))
 
 
 if __name__ == "__main__":

@@ -118,7 +118,8 @@ def _theta_to_points(theta, cw, ckind) -> torch.Tensor:
     return torch.where((ckind == KIND_VERTEX)[..., None], cw[..., 0, :], on_wall)
 
 
-def _solve_opt(tx, rx, cw, ckind, cphi, x0, objective: str, steps: int):
+def _solve_opt(tx, rx, cw, ckind, cphi, x0, objective: str, steps: int,
+               implicit: bool = False):
     """Fermat (``"fermat"``) or MPT (``"mpt"``) solve of every candidate.
 
     ``tx``/``rx`` are ``[P or 1, 1, 2]``; ``x0[C, M, o]`` holds each
@@ -127,6 +128,9 @@ def _solve_opt(tx, rx, cw, ckind, cphi, x0, objective: str, steps: int):
     interaction residual (MPT); with ``M > 1`` the start of least final
     loss wins (first on ties).  The loss follows the JAX package: the
     residual at the solution for Fermat, the solve's last loss for MPT.
+    ``implicit`` differentiates each solve by the implicit-function theorem
+    (``optimize.minimize(implicit=True)``; one ``o x o`` Hessian block per
+    pixel and start) instead of through its unrolled steps.
 
     :return: ``(points[P, C, o, 2], loss[P, C])``.
     """
@@ -146,7 +150,8 @@ def _solve_opt(tx, rx, cw, ckind, cphi, x0, objective: str, steps: int):
         return _bounce_residuals(full, cwm, ckm, cpm)
 
     theta0 = x0.reshape(1, CM, o).expand(P, CM, o)
-    theta, last = optimize.minimize(fun, theta0, args=(txe, rxe, cwm, cpm), steps=steps)
+    theta, last = optimize.minimize(fun, theta0, args=(txe, rxe, cwm, cpm), steps=steps,
+                                    implicit=implicit)
     theta, last = theta.reshape(P, C, M, o), last.reshape(P, C, M)
     if M > 1:
         best = torch.argmin(last, dim=-1, keepdim=True)  # [P, C, 1]
@@ -246,8 +251,8 @@ def _trace_group(
     ``solve`` picks the solver: None for the image method,
     :data:`PINNED` for Fermat/MPT candidates of vertices only (every bounce
     is pinned to its vertex and its residual is 0, so the solve is skipped,
-    as the JAX package skips it), or ``(objective, steps, x0)`` for
-    :func:`_solve_opt`.
+    as the JAX package skips it), or ``(objective, steps, x0, implicit)``
+    for :func:`_solve_opt`.
 
     :return: ``(pts_full[P, C, order+2, 2], loss[P, C], valid[P, C])``.
     """
@@ -268,8 +273,8 @@ def _trace_group(
         pts = cw[:, :, 0, :].expand(P, C, order, 2)
         loss = torch.zeros(P, C, device=tx.device)
     else:
-        objective, steps, x0 = solve
-        pts, loss = _solve_opt(tx, rx, cw, ckind, cphi, x0, objective, steps)
+        objective, steps, x0, implicit = solve
+        pts, loss = _solve_opt(tx, rx, cw, ckind, cphi, x0, objective, steps, implicit)
     pts_full = torch.cat([ends[0], pts, ends[1]], dim=2)
 
     on = _on_objects(pts, cw, ckind, approx, alpha, function)
@@ -325,7 +330,8 @@ class EagerSpec:
     ``steps`` adam steps from ``many`` starts per candidate, drawn from
     ``keys`` (per group, the ``uint32[C, 2]`` keys of its candidates, see
     :func:`group_keys`; None without a key), and need the scene's host
-    ``kinds`` to find the groups of vertices only.
+    ``kinds`` to find the groups of vertices only; ``implicit`` picks the
+    solves' implicit-function derivatives (``solver_grad="implicit"``).
     """
 
     groups: tuple  # ((order, long[C, order] tensor), ...)
@@ -338,6 +344,7 @@ class EagerSpec:
     many: int = 1
     keys: Optional[tuple] = None
     kinds: Optional[tuple] = None
+    implicit: bool = False
 
     @functools.cached_property
     def solves(self) -> Optional[tuple]:
@@ -348,7 +355,7 @@ class EagerSpec:
             return None
         out = []
         for k, (order, cand) in enumerate(self.groups):
-            rows = cand.cpu().numpy()
+            rows = np.asarray(optimize.constants(cand.cpu()).tolist(), dtype=np.int64)
             if order == 0 or cand.shape[0] == 0:
                 out.append(None)
             elif np.all(np.asarray(self.kinds)[rows] == KIND_VERTEX):
@@ -359,7 +366,8 @@ class EagerSpec:
             else:
                 x0 = solver_inits(self.keys[k], order, self.many)
                 out.append((self.solver, int(self.steps),
-                            torch.from_numpy(x0).to(cand.device)))
+                            optimize.constants(torch.from_numpy(x0).to(cand.device)),
+                            self.implicit))
         return tuple(out)
 
     def chunk(self, num_walls: int, track: bool = False) -> int:
@@ -399,7 +407,7 @@ def solver_inits(keys: np.ndarray, order: int, many: int) -> np.ndarray:
 def make_groups(groups_np: dict, device) -> tuple:
     """``{order: int32[C, order]}`` -> sorted ``((order, long tensor), ...)``."""
     return tuple(
-        (o, torch.from_numpy(np.array(g, dtype=np.int64)).to(device))
+        (o, optimize.constants(torch.from_numpy(np.array(g, dtype=np.int64)).to(device)))
         for o, g in sorted(groups_np.items())
     )
 

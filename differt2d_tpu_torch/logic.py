@@ -201,15 +201,17 @@ def is_false(x, tol: float = 0.5, approx: Optional[bool] = None):
     return torch.logical_not(_t(x))
 
 
-def true_value(approx: Optional[bool] = None) -> torch.Tensor:
-    """Scalar true: ``1.0`` soft, ``True`` hard."""
+def true_value(approx: Optional[bool] = None, device=None) -> torch.Tensor:
+    """Scalar true: ``1.0`` soft, ``True`` hard (on ``device``, the CPU by
+    default)."""
     if _resolve(approx):
-        return torch.tensor(1.0)
-    return torch.tensor(True)
+        return torch.ones((), device=device)
+    return torch.ones((), dtype=torch.bool, device=device)
 
 
-def false_value(approx: Optional[bool] = None) -> torch.Tensor:
-    """Scalar false: ``0.0`` soft, ``False`` hard."""
+def false_value(approx: Optional[bool] = None, device=None) -> torch.Tensor:
+    """Scalar false: ``0.0`` soft, ``False`` hard (on ``device``, the CPU by
+    default)."""
     if _resolve(approx):
-        return torch.tensor(0.0)
-    return torch.tensor(False)
+        return torch.zeros((), device=device)
+    return torch.zeros((), dtype=torch.bool, device=device)

@@ -269,19 +269,25 @@ def full_value(px, py, txs, walls, kind, phi, scalars, inputs: SolverInputs, *,
 
 
 class SolverMapFunction(torch.autograd.Function):
-    """Solver map: the kernels' forward, the eager solve's VJP backward."""
+    """Solver map: the kernels' forward, the eager solve's derivatives (VJP
+    backward, JVP forward mode)."""
 
     @staticmethod
-    def forward(ctx, px, py, txs, walls, phi, scal, kind, host_scalars, inputs, approx,
-                sigmoid):
-        ctx.save_for_backward(px, py, txs, walls, phi, scal, kind)
-        ctx.eager = inputs.eager
+    def forward(px, py, txs, walls, phi, scal, kind, host_scalars, inputs, approx, sigmoid):
         return full_value(px, py, txs, walls, kind, phi, host_scalars, inputs,
                           approx=approx, sigmoid=sigmoid)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        power_map_kernel.save_inputs(ctx, inputs)
+
+    @staticmethod
     def backward(ctx, g):
         return (*power_map_kernel.eager_backward(ctx, g), None, None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return power_map_kernel.eager_jvp(ctx, tangents)
 
 
 def solver_request(scene, X, Y, groups: dict, *, solver: str, steps: int, key, approx: bool,

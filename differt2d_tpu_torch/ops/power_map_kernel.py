@@ -40,8 +40,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
+from torch._C._functorch import is_functorch_wrapped_tensor
 
-from .. import eager, logic
+from .. import eager, logic, optimize
 from . import _build
 
 SOURCE = "power_map.cu"
@@ -112,7 +114,7 @@ def cached_inputs(kind: str, groups: dict, device, approx: bool, sigmoid: bool, 
     if hit is not None:
         _INPUTS_CACHE.move_to_end(key)
         return hit
-    entry = make()
+    entry = optimize.constants(make())
     _INPUTS_CACHE[key] = entry
     while len(_INPUTS_CACHE) > _INPUTS_CACHE_MAX:
         _INPUTS_CACHE.popitem(last=False)
@@ -514,25 +516,40 @@ def occupancy(grad: bool, soft_mode: int, fast: bool, num_walls: int) -> int:
 
 
 class PowerMapFunction(torch.autograd.Function):
-    """Value map: the kernel forward, the plain version's VJP backward."""
+    """Value map: the kernel forward, the plain version's derivatives
+    (VJP backward, JVP forward mode)."""
 
     @staticmethod
-    def forward(ctx, px, py, txs, walls, phi, scal, kind, host_scalars, inputs,
-                approx, sigmoid):
-        ctx.save_for_backward(px, py, txs, walls, phi, scal, kind)
-        ctx.eager = inputs.eager
+    def forward(px, py, txs, walls, phi, scal, kind, host_scalars, inputs, approx, sigmoid):
         return value(px, py, txs, walls, kind, phi, host_scalars, inputs,
                      approx=approx, sigmoid=sigmoid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        save_inputs(ctx, inputs)
 
     @staticmethod
     def backward(ctx, g):
         return (*eager_backward(ctx, g), None, None, None, None, None)
 
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return eager_jvp(ctx, tangents)
+
+
+def save_inputs(ctx, inputs) -> None:
+    """``setup_context`` of a map Function whose inputs begin ``(px, py,
+    txs, walls, phi, scal, kind, host_scalars, inputs)``: saves the tensors
+    for both modes and the inputs' :class:`eager.EagerSpec`."""
+    px, py, txs, walls, phi, scal, kind, _, kernel_inputs = inputs[:9]
+    ctx.save_for_backward(px, py, txs, walls, phi, scal, kind)
+    ctx.save_for_forward(px, py, txs, walls, phi, scal, kind)
+    ctx.eager = kernel_inputs.eager
+
 
 def eager_backward(ctx, g):
     """Gradients of ``(px, py, txs, walls, phi, scal)`` from the plain
-    version's VJP, for a Function that saved those tensors and ``kind``
-    and set ``ctx.eager`` (its :class:`eager.EagerSpec`)."""
+    version's VJP, for a Function set up by :func:`save_inputs`."""
     px, py, txs, walls, phi, scal, kind = ctx.saved_tensors
     need = ctx.needs_input_grad
     pixels = torch.stack([px, py], dim=-1)
@@ -543,6 +560,23 @@ def eager_backward(ctx, g):
     gpx = gpix[:, 0] if need[0] else None
     gpy = gpix[:, 1] if need[1] else None
     return gpx, gpy, gtx, gwalls, gphi, gscal
+
+
+def eager_jvp(ctx, tangents):
+    """Tangent of the map along the tangents of ``(px, py, txs, walls, phi,
+    scal)`` (None for none), by ``torch.func.jvp`` over the plain version,
+    for a Function set up by :func:`save_inputs`: the kernel stays the
+    forward pass, as the plain VJP is its backward."""
+    px, py, txs, walls, phi, scal, kind = ctx.saved_tensors
+    primals = (px, py, txs, walls, phi, scal)
+    dots = tuple(torch.zeros_like(p) if t is None else t for p, t in zip(primals, tangents))
+
+    def plain(px, py, txs, walls, phi, scal):
+        pixels = torch.stack([px, py], dim=-1)
+        return eager.eager_value(pixels, txs, walls, kind, phi, tuple(scal.unbind()), ctx.eager)
+
+    out, tangent = optimize.jvp(plain, primals, dots)
+    return tangent.to(out.dtype)
 
 
 def request_tensors(scene, X, Y, on_transmitters: bool):
@@ -561,9 +595,18 @@ def request_tensors(scene, X, Y, on_transmitters: bool):
 
 def tracked_scalars(tensors, scalars: tuple):
     """``(scal[5], host scalars)`` for a differentiable value map when
-    autograd tracks one of ``tensors`` or ``scalars``, else None."""
-    tracked = torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad for t in (*tensors, *scalars)
+    autograd, or a ``torch.func`` transform, tracks one of ``tensors`` or
+    ``scalars``, else None.  Raises for forward-mode tangents of
+    ``torch.autograd.forward_ad``, which the maps' Functions cannot take
+    (``torch.func.jvp``, as ``optimize.value_and_grad_fwd`` runs it, can)."""
+    values = (*tensors, *scalars)
+    if any(isinstance(t, torch.Tensor) and not is_functorch_wrapped_tensor(t)
+           and fwAD.unpack_dual(t).tangent is not None for t in values):
+        msg = ("forward-mode tangents reach the kernels' maps through torch.func.jvp"
+               " (optimize.value_and_grad_fwd), not torch.autograd.forward_ad dual tensors")
+        raise NotImplementedError(msg)
+    tracked = optimize.transformed(values) or torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in values
     )
     if not tracked:
         return None

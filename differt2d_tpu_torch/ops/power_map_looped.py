@@ -43,7 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import eager, logic
+from .. import eager, logic, optimize
 from . import _build, cull_tables
 from .power_map_kernel import (  # noqa: F401 (the rejection's names are this module's too)
     _REJECT_SLACK,
@@ -60,9 +60,11 @@ from .power_map_kernel import (  # noqa: F401 (the rejection's names are this mo
     _soft_mode,
     cached_inputs,
     eager_backward,
+    eager_jvp,
     rejection_bounds,
     rejects,
     request_tensors,
+    save_inputs,
     tracked_scalars,
 )
 
@@ -419,7 +421,8 @@ def make_plan(X, Y, txs, walls, kind, scalars, inputs: LoopedInputs, *, approx: 
                                   approx=approx, sigmoid=sigmoid, cull=cull,
                                   shadow=shadow)
             per_tx.append(TxPlan(tx=tx.contiguous(), aux=aux, imgs=imgs, tables=tables))
-    return Plan(rows=X.shape[0], cols=X.shape[1], tile=tuple(tile), per_tx=tuple(per_tx))
+    return optimize.constants(
+        Plan(rows=X.shape[0], cols=X.shape[1], tile=tuple(tile), per_tx=tuple(per_tx)))
 
 
 # -- plain versions ---------------------------------------------------------------
@@ -726,20 +729,27 @@ def twin_value_and_grad(px, py, walls, kind, phi, scalars, inputs: LoopedInputs,
 
 
 class LoopedMapFunction(torch.autograd.Function):
-    """Value map: the looped kernel forward, the plain tracer's VJP backward
-    (unculled: the tables only drop exact zeros)."""
+    """Value map: the looped kernel forward, the plain tracer's derivatives
+    (VJP backward, JVP forward mode; unculled: the tables only drop exact
+    zeros)."""
 
     @staticmethod
-    def forward(ctx, px, py, txs, walls, phi, scal, kind, host_scalars, inputs, plan,
-                approx, sigmoid):
-        ctx.save_for_backward(px, py, txs, walls, phi, scal, kind)
-        ctx.eager = inputs.eager
+    def forward(px, py, txs, walls, phi, scal, kind, host_scalars, inputs, plan, approx,
+                sigmoid):
         return value(px, py, walls, kind, phi, host_scalars, inputs, plan,
                      approx=approx, sigmoid=sigmoid)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        save_inputs(ctx, inputs)
+
+    @staticmethod
     def backward(ctx, g):
         return (*eager_backward(ctx, g), None, None, None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return eager_jvp(ctx, tangents)
 
 
 def sigmoid_saturates(device) -> bool:

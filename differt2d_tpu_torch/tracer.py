@@ -36,18 +36,19 @@ from .defaults import (
 from .eager import (
     EagerSpec,
     SceneArrays,
+    _trace_group,
     eager_value,
     eager_value_and_grad,
     group_keys,
     make_groups,
 )
-from . import logic, prng
+from . import logic, optimize, prng
 from .logic import hard_sigmoid, sigmoid
 from .ops import opt_solver_kernel, power_map_kernel, power_map_looped
 from .ops.cull_tables import _SIGMOID_Z0
 from .rt import path_candidate_matrices
 
-__all__ = ("KIND_RIS", "KIND_VERTEX", "KIND_WALL", "SceneArrays", "power_map")
+__all__ = ("KIND_RIS", "KIND_VERTEX", "KIND_WALL", "SceneArrays", "power_map", "trace_paths")
 
 # Stream-proxy bounds of the JAX package's choice between its unrolled and
 # looped Pallas kernels (``differt2d_tpu/ops/pallas_kernels.py``,
@@ -82,18 +83,20 @@ _OPTIONS = {
 
 
 def _filter_nodes(scene, filter_objects) -> Optional[tuple]:
+    """Positions of the objects ``filter_objects`` rejects (it is called on
+    the scene's object views, which copy nothing from the device)."""
     if filter_objects is None:
         return None
-    return tuple(o.index for o in scene.objects if not filter_objects(o))
+    return tuple(i for i, o in enumerate(scene.objects) if not filter_objects(o))
 
 
 def _all_vertex_allowed(scene, filter_objects) -> bool:
-    """Whether every object that may enter a candidate is a vertex.  Without
-    a filter the host-side kinds answer, with no copy from the device."""
+    """Whether every object that may enter a candidate is a vertex, by the
+    host-side kinds."""
     if filter_objects is None:
         allowed = scene.kinds
     else:
-        allowed = [o.kind for o in scene.objects if filter_objects(o)]
+        allowed = [k for k, o in zip(scene.kinds, scene.objects) if filter_objects(o)]
     return bool(allowed) and all(k == KIND_VERTEX for k in allowed)
 
 
@@ -221,12 +224,6 @@ def _route(scene, kw: dict, groups: dict, backend: str, *, grad: bool) -> str:
     ok, reason = _kernel_eligible(scene, kw, grad=grad, groups=groups)
     if kw["solver"] not in ("image", "fermat", "mpt"):
         raise ValueError(reason)
-    if not _image_paths(scene, kw) and kw["solver_grad"] == "implicit":
-        msg = (
-            "solver_grad='implicit' is not ported yet (ROADMAP §1 item 9b: the"
-            " cfg3/cfg5 gradient modes); solver_grad='unroll' is"
-        )
-        raise NotImplementedError(msg)
     if backend == "torch":
         return "torch"
     if not ok:
@@ -264,7 +261,8 @@ def _looped_gates(scene, kw: dict, groups: dict) -> tuple[bool, bool]:
     approx, sig = bool(kw["approx"]), kw["function"] is sigmoid
     ok = True
     if approx and sig:
-        walls = scene.walls.detach().reshape(-1, 2).cpu().numpy()
+        walls = np.asarray(optimize.constants(scene.walls.detach().reshape(-1, 2).cpu()).tolist(),
+                           dtype=np.float32)
         diag = float(np.sqrt(np.sum((walls.max(axis=0) - walls.min(axis=0)) ** 2))) or 1.0
         band = _SIGMOID_Z0 / max(float(kw["alpha"]), 1e-6)
         ok = band < 0.25 * diag and power_map_looped.sigmoid_saturates(scene.device)
@@ -312,7 +310,11 @@ def power_map(
     ``solver="fermat"`` or ``"mpt"`` solves each bounce with ``steps`` adam
     steps from a uniform draw of ``key`` (a ``uint32[2]`` key of
     :mod:`differt2d_tpu_torch.prng`, equal to JAX's for the same seed), the
-    best of ``many`` starts.
+    best of ``many`` starts.  Their derivatives (pixel gradients, autograd,
+    ``torch.func``) go through the unrolled steps, or, with
+    ``solver_grad="implicit"``, through the implicit-function theorem at
+    each solution (``optimize.minimize(implicit=True)``; the eager tracer,
+    as in the JAX package).
 
     ``device`` defaults to ``"cuda"``; without a GPU, pass ``"cpu"``.
 
@@ -383,6 +385,7 @@ def power_map(
             many=int(kw["many"]),
             keys=None if kw["key"] is None else group_keys(groups, kw["key"]),
             kinds=scene.kinds,
+            implicit=kw["solver_grad"] == "implicit",
         )
         points = scene.receivers if kw["on_transmitters"] else scene.transmitters
         fixed = (
@@ -400,3 +403,65 @@ def power_map(
     if grad:
         return Z[1].reshape(*X.shape, 2)
     return Z.reshape(X.shape)
+
+
+def trace_paths(
+    scene,
+    tx,
+    rx,
+    *,
+    min_order: int = 0,
+    max_order: int = 1,
+    order: Optional[int] = None,
+    solver: str = "image",
+    approx: Optional[bool] = None,
+    alpha=DEFAULT_ALPHA,
+    function=hard_sigmoid,
+    tol=1e-2,
+    patch=DEFAULT_PATCH,
+    steps: int = 100,
+    many: int = 1,
+    key=None,
+    filter_objects=None,
+    device=DEFAULT_DEVICE,
+) -> dict:
+    """Every path candidate of one transmitter-receiver pair, traced in
+    batches per order (``differt2d_tpu.tracer.trace_paths``).
+
+    Keys: one per candidate from ``prng.split(key, total)`` in order-major
+    enumeration, as :func:`power_map` draws them.
+
+    :return: ``{order: {"candidates": int32[C, order], "points":
+        [C, order + 2, 2], "loss": [C], "valid": [C]}}`` for each order
+        with candidates (valid is float in soft logic, bool in hard).
+    """
+    if solver not in ("image", "fermat", "mpt"):
+        msg = f"unknown solver {solver!r}"
+        raise ValueError(msg)
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    if approx is None:
+        approx = bool(logic.ENABLE_APPROX)
+    groups = path_candidate_matrices(
+        scene.num_objects, min_order=min_order, max_order=max_order, order=order,
+        filter_nodes=_filter_nodes(scene, filter_objects),
+    )
+    spec = EagerSpec(
+        groups=make_groups(groups, dev), approx=bool(approx), function=function,
+        solver=solver, steps=int(steps), many=int(many),
+        keys=None if key is None else group_keys(groups, prng.as_key(key)), kinds=scene.kinds,
+    )
+    arrays = SceneArrays(walls=scene.walls, kind=scene.kind, phi=scene.phi)
+    ends = [torch.as_tensor(p).to(device=dev, dtype=torch.float32).reshape(1, 1, 2)
+            for p in (tx, rx)]
+    out = {}
+    for k, (o, cand) in enumerate(spec.groups):
+        if cand.shape[0] == 0:
+            continue
+        pts, loss, valid = _trace_group(
+            *ends, arrays, o, cand, approx=spec.approx, alpha=alpha, function=function,
+            tol=tol, patch=patch, solve=None if spec.solves is None else spec.solves[k],
+        )
+        out[o] = {"candidates": cand.to(torch.int32), "points": pts[0], "loss": loss[0],
+                  "valid": valid[0]}
+    return out

@@ -1,8 +1,32 @@
-"""Comparison helpers (counterpart of ``differt2d_tpu/utils.py``)."""
+"""Physics and comparison helpers (counterpart of ``differt2d_tpu/utils.py``)."""
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+
+from .defaults import DEFAULT_HEIGHT, DEFAULT_R_COEF
+
+P0: float = 100.0
+"""Received power at zero distance with the default parameters."""
+
+
+def received_power(transmitter, receiver, path, interacting_objects: Sequence,
+                   r_coef=DEFAULT_R_COEF, height=DEFAULT_HEIGHT):
+    """Received power along a path: ``r_coef**n / (height**2 + r**2)``, with
+    ``n`` the path's interactions and ``r`` its length; ``height`` keeps it
+    finite where the transmitter is the receiver.  The transmitter, the
+    receiver and the objects are taken (and ignored) for the accumulators'
+    path-function protocol."""
+    r = path.length()
+    n = path.xys.shape[0] - 2
+    return (r_coef**n) / (height * height + r * r)
+
+
+received_power.vectorized = True  # type: ignore[attr-defined]
+"""Marker: safe to vectorize over batched paths (the JAX package's fast grid
+path reads it)."""
 
 
 def kink_excess(

@@ -74,6 +74,14 @@ def _order2_inputs(walls, tx, approx, sigmoid):
 CASES = [("city_extract_scene", m) for m in range(3)] + [
     ("city_scene", 0), ("random0", 1), ("random1", 2)]
 
+# The JAX package's table functions, each jitted whole: one compile a call
+# in place of the hundreds of small ones its op-by-op run makes (about
+# 20 s a scene on one CPU thread).
+_pair_dead = jax.jit(pk.pair_occlusion_dead, static_argnums=(5, 6))
+_mid_masks = jax.jit(pk.mid_pair_masks, static_argnums=(5,), static_argnames=("sigmoid",))
+_shadow_words = jax.jit(pk.shadow_chunk_words, static_argnums=(5,),
+                        static_argnames=("sigmoid",))
+
 
 @pytest.mark.parametrize("name,mode", CASES)
 def test_order2_tables_equal_the_jax_package(name, mode, monkeypatch):
@@ -83,8 +91,7 @@ def test_order2_tables_equal_the_jax_package(name, mode, monkeypatch):
     jw, jk, jtx = jnp.asarray(walls), jnp.asarray(kind), jnp.asarray(tx)
     tw, tk, ttx = torch.from_numpy(walls), torch.from_numpy(kind), torch.from_numpy(tx)
     # Kill of wall pairs, in one slab and in slabs of 7 downstream walls.
-    ref = np.asarray(pk.pair_occlusion_dead(jw, jk, jtx, f32(0.0), f32(alpha), approx, sig,
-                                            f32(1e-2)))
+    ref = np.asarray(_pair_dead(jw, jk, jtx, f32(0.0), f32(alpha), approx, sig, f32(1e-2)))
     dead = ct.pair_occlusion_dead(tw, tk, ttx, 0.0, alpha, approx, sig, 1e-2)
     np.testing.assert_array_equal(dead.numpy(), ref)
     assert 1000 < int(dead.sum()) < W * W // 2
@@ -100,16 +107,16 @@ def test_order2_tables_equal_the_jax_package(name, mode, monkeypatch):
     mid = ct.mid_masks(geo)
     np.testing.assert_array_equal(
         _chunk_words(mid).reshape(-1),
-        np.asarray(pk.mid_pair_masks(jw, jk, jtx, f32(0.0), f32(alpha), approx, sigmoid=sig,
-                                     tol=f32(1e-2))))
+        np.asarray(_mid_masks(jw, jk, jtx, f32(0.0), f32(alpha), approx, sigmoid=sig,
+                              tol=f32(1e-2))))
     assert 0.1 < float(mid.float().mean()) < 0.5
     words = ct.mid_words(geo)
     assert words.shape == (W * W, -(-W // 32))
     assert torch.equal(ct.unpack_words(words, W).reshape(W, W, W), mid)
     _, m0, mlast, mlos = ct._occluder_masks(tw, tk, ttx, 0.0, alpha, approx, *tb, sigmoid=sig,
                                             tol=1e-2, geo=geo)
-    l0w, lastw, losw = pk.shadow_chunk_words(jw, jk, jtx, f32(0.0), f32(alpha), approx, *jb,
-                                             sigmoid=sig, tol=f32(1e-2))
+    l0w, lastw, losw = _shadow_words(jw, jk, jtx, f32(0.0), f32(alpha), approx, *jb,
+                                     sigmoid=sig, tol=f32(1e-2))
     assert bool(geo["hz_free"])
     np.testing.assert_array_equal(_chunk_words(m0), np.asarray(l0w))
     np.testing.assert_array_equal(_chunk_words(mlast), np.asarray(lastw)[:, 0])
@@ -118,11 +125,11 @@ def test_order2_tables_equal_the_jax_package(name, mode, monkeypatch):
     # four tiles of the 32 x 32 grid.
     groups, normals, imgs = _order2_inputs(walls, tx, approx, sig)
     sub = [t[[0, 5, 10, 15]] for t in tb]
-    jkeep = pk.beam_keep_tables(
-        jw, jnp.asarray(normals.numpy()), jk, groups, [2], {2: jnp.asarray(imgs[2].numpy())},
-        *(jnp.asarray(t.numpy()) for t in sub), approx=approx, alpha=f32(alpha), tx=jtx,
+    jkeep = jax.jit(lambda jw, normals, jk, img, *sub: pk.beam_keep_tables(
+        jw, normals, jk, groups, [2], {2: img}, *sub, approx=approx, alpha=f32(alpha), tx=jtx,
         patch=f32(0.0), occlusion=False, refine=4, sigmoid=sig, tol=f32(1e-2),
-    )[2]
+    )[2])(jw, jnp.asarray(normals.numpy()), jk, jnp.asarray(imgs[2].numpy()),
+          *(jnp.asarray(t.numpy()) for t in sub))
     tkeep = ct.beam_keep_tables(tw, normals, tk, groups, [2], imgs, *sub, approx=approx,
                                 alpha=alpha, tx=ttx, patch=0.0, refine=4, sigmoid=sig,
                                 tol=1e-2)[2]
@@ -236,17 +243,19 @@ def _extract(n_buildings=None):
 
 def _match_jax(js, ts, X, Y, kw, grad_grid=None):
     """The port's map (looped route) against the JAX XLA tracer's; the
-    gradient on ``grad_grid`` (default: the same grid)."""
+    gradient on ``grad_grid`` (default: the same grid, where one JAX
+    value-and-gradient map is the reference of both port maps)."""
     for grad in (False, True):
         ok, reason = ttracer._kernel_eligible(ts, kw, grad=grad)
         assert ok and reason.startswith("looped"), reason
-    ref = jtracer.power_map(js, jnp.asarray(X), jnp.asarray(Y), backend="xla", **kw)
-    got = power_map(ts, torch.from_numpy(X), torch.from_numpy(Y), device="cpu", **kw)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
-    assert float(got.sum()) > 0.0
     gX, gY = (X, Y) if grad_grid is None else grad_grid
     rv, rg = jtracer.power_map(js, jnp.asarray(gX), jnp.asarray(gY), backend="xla",
                                value_and_grad=True, **kw)
+    ref = rv if grad_grid is None else jtracer.power_map(
+        js, jnp.asarray(X), jnp.asarray(Y), backend="xla", **kw)
+    got = power_map(ts, torch.from_numpy(X), torch.from_numpy(Y), device="cpu", **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert float(got.sum()) > 0.0
     zv, zg = power_map(ts, torch.from_numpy(gX), torch.from_numpy(gY), device="cpu",
                        value_and_grad=True, **kw)
     np.testing.assert_allclose(zv.numpy(), np.asarray(rv), **TOL)

@@ -31,7 +31,7 @@ from differt2d_tpu.geometry import RIS, Vertex
 from differt2d_tpu.logic import sigmoid as jsigmoid
 from differt2d_tpu.rt import path_candidate_matrices as jcands
 from differt2d_tpu.scene import Scene as JScene
-from differt2d_tpu_torch import load_scene_arrays, power_map, prng
+from differt2d_tpu_torch import geometry, load_scene_arrays, optimize, power_map, prng, trace_paths
 from differt2d_tpu_torch import tracer as ttracer
 from differt2d_tpu_torch.logic import sigmoid as tsigmoid
 from differt2d_tpu_torch.ops import opt_solver_kernel as osk
@@ -53,7 +53,7 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'differt2d_tpu' or m.startswith('differt2d_tpu.'))\n"
         "assert len(names) >= 12, names\n"
-        "for m in ('prng', 'optimize', 'ops.opt_solver_kernel'):\n"
+        "for m in ('prng', 'optimize', 'ops.opt_solver_kernel', 'abc', 'geometry', '_tree'):\n"
         "    assert 'differt2d_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -75,6 +75,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         power_map(scene, X, Y)
     assert power_map(scene, X, Y, device="cpu").shape == (4, 4)
+    key = prng.PRNGKey(0)
+    for entry in (Scene.square_scene_with_wall, Scene.square_scene_with_obstacle,
+                  lambda: Scene.random_uniform_scene(key=key), lambda: Scene.from_objects(()),
+                  lambda: Scene.from_scene_name("basic_scene"), geometry.Point,
+                  lambda: geometry.from_numpy("Wall", xys=np.zeros((2, 2))),
+                  lambda: optimize.minimize_random_uniform(lambda x: x.sum(), key, 2),
+                  lambda: trace_paths(scene, [0.1, 0.1], [0.2, 0.2])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert trace_paths(scene, [0.1, 0.1], [0.2, 0.2], device="cpu")[1]["points"].shape == (7, 3, 2)
 
 
 @functools.lru_cache(maxsize=None)

@@ -175,12 +175,30 @@ def test_group_keys_follow_the_jax_enumeration():
 
 
 def test_unported_gradient_modes_raise():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        optimize.minimize(lambda x: (x * x).sum(), torch.zeros(2), implicit=True)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        optimize.value_and_grad_fwd(lambda x: (x * x).sum())
+    """The three gradient modes that raised before they were ported now
+    run and match the JAX package: the optimizer's at rtol 1e-5 / atol
+    1e-6, the implicit map at Fermat's rtol 1e-3 / atol 1e-4 with a finite
+    pixel gradient (held against JAX's in ``test_torch_grad_modes.py``).
+    The name is kept from when they raised."""
+    p0 = np.array([0.7, -0.3], np.float32)
+    p = torch.from_numpy(p0.copy()).requires_grad_(True)
+    x, _ = optimize.minimize(lambda x, p: ((x - p) ** 2).sum(), torch.zeros(2), args=(p,),
+                             implicit=True)
+    (g,) = torch.autograd.grad(x.sum(), p)
+    jg = jax.grad(lambda q: joptimize.minimize(lambda x, q: jnp.sum((x - q) ** 2), jnp.zeros(2),
+                                               args=(q,), implicit=True)[0].sum())(jnp.asarray(p0))
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
+    v, g = optimize.value_and_grad_fwd(lambda x: (x * x).sum())(torch.from_numpy(p0.copy()))
+    jv, jg = joptimize.value_and_grad_fwd(lambda x: jnp.sum(x * x))(jnp.asarray(p0))
+    np.testing.assert_allclose(float(v), float(jv), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
     scene = Scene.square_scene(device="cpu")
     X, Y = scene.grid(4)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        power_map(scene, X, Y, order=1, solver="fermat", solver_grad="implicit",
-                  key=prng.PRNGKey(0), device="cpu")
+    kw = dict(order=1, solver="fermat", steps=STEPS, approx=True)
+    z, dz = power_map(scene, X, Y, solver_grad="implicit", value_and_grad=True,
+                      key=prng.PRNGKey(SEED), device="cpu", **kw)
+    jz = jtracer.power_map(JScene.square_scene(), jnp.asarray(X.numpy()), jnp.asarray(Y.numpy()),
+                           solver_grad="implicit", key=jax.random.PRNGKey(SEED), backend="xla",
+                           **kw)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), **FERMAT_TOL)
+    assert bool(torch.isfinite(dz).all()) and float(dz.abs().max()) > 0
