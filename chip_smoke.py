@@ -205,6 +205,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     extract's 136 walls at orders 2 and 3), equal arrays, host clock,
     median of 7, and the row count from which the native one is faster.
 
+26. the paper figures' scripts (``papers/*/*_torch.py``) and the runtime
+    checks: a) each script's computing function at its default size on the
+    card, its wall seconds, the launches of each kernel (B1 once for the
+    600 x 600 zero-gradient map and twice for the EuCAP hard and soft maps,
+    B6 once for the 300 x 300 JOSS RIS map, B1 four times for the JOSS
+    snapshots, none for the EuCAP optimisation on the object API; any other
+    count fails), the route ``_route`` takes for each map and its device
+    time (CUDA events), each map against ``backend="torch"`` on the card
+    (B1 maps at rtol 1e-4 / atol 1e-5, the RIS map at rtol 1e-3 / atol
+    1e-5), and the EuCAP trajectory's first 10 TX points against the CPU's
+    (within 1e-4); b) what the checks cost: a synchronised ``power_map`` of
+    the basic scene at 1024 x 1024 (median of 200) and phase 6's chained
+    end to end (32 maps, median of 5), with the checks on and under
+    ``no_typecheck()`` in turns, and the host's enqueue time per call;
+    c) ``geometry.path_length`` of an int32 tensor on the card and
+    ``Point().get_location("X")`` raise ``TypeCheckError``.
+
     Phases 10 and 18 time each looped kernel against its twin in turns
     (twin, new, new, twin) and bound it by the work these inputs need
     (``needed_ops``) beside the count of every listed test.
@@ -775,7 +792,7 @@ def main() -> int:
     redesign_phase(dev)
     value_router_phase(dev)
     for number, phase in ((22, object_phase), (23, gradient_phase), (24, parallel_phase),
-                          (25, serving_phase)):
+                          (25, serving_phase), (26, papers_phase)):
         t0 = time.perf_counter()
         phase(dev, card)
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2868,6 +2885,160 @@ def enumerator_phase(reps: int = 7) -> None:
                       if all(faster for _, faster in rows_faster[i:])), None)
     print(f"  the native enumerator is faster from {from_rows} rows of these sets;"
           f" NATIVE_THRESHOLD = {_native.NATIVE_THRESHOLD}", flush=True)
+
+
+# -- 26. the paper figures' scripts, and what the runtime checks cost -----------------------
+
+# Each script of papers/ (its computing function at its default size) and
+# the launches its arrays need: B1 once per map, B6 once for the RIS map,
+# none for the optimisation on the object API.
+PAPERS = (
+    ("eucap2024/plot_zero_gradient_torch", {"power_map_value": 1}),
+    ("eucap2024/plot_power_map_torch", {"power_map_value": 2}),
+    ("eucap2024/plot_optimize_steps_torch", {}),
+    ("joss/plot_ris_power_map_torch", {"opt_solver_value": 1}),
+    ("joss/plot_optimize_steps_torch", {"power_map_value": 4}),
+)
+RIS_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def load_paper(name: str):
+    """The module of ``papers/<name>.py`` of this checkout."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "papers", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name.replace("/", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def paper_maps(name: str, out: dict) -> list:
+    """``(label, scene, X, Y, power_map keywords, map)`` of each map a
+    script's output holds."""
+    from differt2d_tpu_torch import prng
+    from differt2d_tpu_torch.geometry import RIS
+
+    if name.endswith("zero_gradient_torch"):
+        return [("zero-gradient map", out["scene"], out["X"], out["Y"],
+                 dict(max_order=0, approx=False), out["P"])]
+    if name.endswith("eucap2024/plot_power_map_torch"):
+        return [(f"EuCAP map, approx={approx}", out["scene"], out["X"], out["Y"],
+                 dict(max_order=1, approx=approx, key=prng.PRNGKey(1234)), out["Z"][approx])
+                for approx in (False, True)]
+    if name.endswith("ris_power_map_torch"):
+        return [("JOSS RIS map", out["scene"], out["X"], out["Y"],
+                 dict(order=1, solver="mpt", steps=1000, approx=True, key=prng.PRNGKey(1234),
+                      filter_objects=lambda o: isinstance(o, RIS)), out["Z"])]
+    if name.endswith("joss/plot_optimize_steps_torch"):
+        return [(f"JOSS snapshot alpha={snap['alpha']:.3f}", snap["scene"], snap["X"], snap["Y"],
+                 dict(max_order=1, approx=True, alpha=snap["alpha"]), snap["Z"])
+                for snap in out["snapshots"]]
+    return []
+
+
+def route_of(scene, kw: dict) -> str:
+    """The route ``power_map`` takes for ``kw`` (``tracer._route``)."""
+    from differt2d_tpu_torch import tracer
+
+    opts = tracer._options(dict(kw), "auto")
+    return tracer._route(scene, opts, tracer._groups_for(scene, opts), "auto", grad=False)
+
+
+def papers_phase(dev, card: str) -> None:
+    """Phase 26: a) the five papers scripts at their default sizes, b) the
+    runtime checks' cost on the card's host, c) a misuse with card tensors."""
+    import contextlib
+
+    import torch
+
+    from differt2d_tpu_torch import Scene, TypeCheckError, geometry, no_typecheck, power_map
+
+    # a) the scripts' arrays, their launches and routes, each map against
+    # the eager tracer on the card.
+    for name, expected in PAPERS:
+        module = load_paper(name)
+        t0 = time.perf_counter()
+        out, launches = launch_counts(lambda: module.compute(device=dev))
+        wall_s = time.perf_counter() - t0
+        print(f"  {name}: {wall_s:.2f} s wall (host clock, synchronised) [{card}]", flush=True)
+        expect_launches(name, launches, expected)
+        check(launches == expected, f"{name}: launches {launches}, expected {expected}")
+        for label, sc, X, Y, kw, got in paper_maps(name, out):
+            route = route_of(sc, kw)
+            ref = power_map(sc, X, Y, backend="torch", **kw)
+            assert_close(f"{label} {X.shape[0]}^2 vs backend='torch'", got, ref,
+                         RIS_TOL if kw.get("solver") == "mpt" else VALUE_TOL)
+            ms = cuda_time_ms(lambda: power_map(sc, X, Y, **kw), 4, 3)
+            print(f"  {label}: route {route!r}, {ms:.4f} ms/map (CUDA events, 4 maps chained,"
+                  f" median of 3) [{card}]", flush=True)
+        if name.endswith("eucap2024/plot_optimize_steps_torch"):
+            cpu = module.make_scene(torch.device("cpu"))
+            for approx in (False, True):
+                card_traj = out["trajectories"][approx]
+                check(bool(torch.isfinite(card_traj).all()), f"{name}: non-finite TX points")
+                ref, _ = module.descend(cpu, approx, out["alphas"].cpu()[:9])
+                err = max_abs(card_traj[:10].cpu(), ref)
+                check(err <= 1e-4, f"{name}, approx={approx}: the first 10 TX points differ from"
+                                   f" the CPU's by {err}")
+                print(f"  EuCAP trajectory approx={approx}: first 10 TX points within {err:.3g}"
+                      f" of the CPU's; final TX {card_traj[-1].tolist()}", flush=True)
+
+    # b) the checks' cost: the same requests with the checks on and under
+    # no_typecheck(), in turns, in this process.
+    scene = Scene.basic_scene()
+    X, Y = grid(1024, dev)
+    kw = dict(max_order=1, approx=True)
+
+    def checks(on: bool):
+        return contextlib.nullcontext() if on else no_typecheck()
+
+    def synchronised():
+        power_map(scene, X, Y, **kw)
+        torch.cuda.synchronize()
+
+    for on in (True, False):
+        with checks(on):
+            synchronised()
+    single = {True: [], False: []}
+    for i in range(200):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            with checks(on):
+                t0 = time.perf_counter()
+                synchronised()
+                single[on].append((time.perf_counter() - t0) * 1e6)
+    s_on, s_off = statistics.median(single[True]), statistics.median(single[False])
+    print(f"  checks on a synchronised power_map 1024^2: {s_on:.1f} us with checks,"
+          f" {s_off:.1f} us under no_typecheck(), {s_on - s_off:+.2f} us per call (host clock,"
+          f" median of 200 in turns) [{card}]", flush=True)
+    chained, enqueue = {True: [], False: []}, {True: [], False: []}
+    for on in (True, False, False, True):
+        with checks(on):
+            chained[on].append(cuda_time_ms(lambda: power_map(scene, X, Y, **kw), 32, 5))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(32):
+                power_map(scene, X, Y, **kw)
+            enqueue[on].append((time.perf_counter() - t0) / 32 * 1e6)
+            torch.cuda.synchronize()
+    c_on, c_off = statistics.mean(chained[True]), statistics.mean(chained[False])
+    q_on, q_off = statistics.mean(enqueue[True]), statistics.mean(enqueue[False])
+    print(f"  checks on phase 6's end to end (32 maps chained, median of 5; turns on, off, off,"
+          f" on): {c_on:.4f} ms/map with checks, {c_off:.4f} ms/map under no_typecheck(),"
+          f" {(c_on - c_off) * 1e3:+.2f} us per call ({(c_on - c_off) / c_off:+.2%}); host"
+          f" enqueue {q_on:.1f} / {q_off:.1f} us per call [{card}]", flush=True)
+
+    # c) a misuse with card tensors raises.
+    for label, misuse in (
+        ("geometry.path_length(int32 on the card)",
+         lambda: geometry.path_length(torch.zeros(3, 2, dtype=torch.int32, device=dev))),
+        ("Point().get_location('X')", lambda: geometry.Point().get_location("X")),
+    ):
+        try:
+            misuse()
+            fail(f"{label} did not raise")
+        except TypeCheckError as exc:
+            print(f"  {label}: TypeCheckError ({str(exc).split(' — ')[1]})", flush=True)
 
 
 if __name__ == "__main__":

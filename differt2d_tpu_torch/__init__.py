@@ -9,9 +9,12 @@ CUDA kernels for NVIDIA Hopper (:mod:`differt2d_tpu_torch.ops.power_map_kernel`)
 It imports neither JAX nor the JAX package.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
-another device.
+another device.  They check their arguments as the JAX package's do
+(:class:`TypeCheckError`; :func:`no_typecheck` and :func:`set_typecheck`
+turn the checks off), at the entry points only.
 """
 
+from ._runtime_typing import TypeCheckError, no_typecheck, set_typecheck
 from .geometry import RIS, FermatPath, ImagePath, MinPath, Path, Point, Ray, Vertex, Wall
 from .scene import Scene, load_scene_arrays
 from .tracer import power_map, trace_paths
@@ -29,11 +32,14 @@ __all__ = (
     "Point",
     "Ray",
     "Scene",
+    "TypeCheckError",
     "Vertex",
     "Wall",
     "__version__",
     "load_scene_arrays",
+    "no_typecheck",
     "power_map",
     "received_power",
+    "set_typecheck",
     "trace_paths",
 )

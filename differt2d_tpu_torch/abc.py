@@ -18,6 +18,7 @@ from typing import Any, Optional
 import torch
 
 from . import prng
+from ._runtime_typing import literal_spec, typecheck
 from .defaults import DEFAULT_PATCH
 
 LOCATIONS = ("N", "E", "S", "W", "C", "NE", "NW", "SE", "SW")
@@ -53,13 +54,12 @@ class Plottable(ABC):
         bb = self.bounding_box()
         return 0.5 * (bb[0, :] + bb[1, :])
 
+    @typecheck(location=literal_spec(*LOCATIONS))
     def get_location(self, location: str) -> torch.Tensor:
         """Compass anchor (one of :data:`LOCATIONS`) of the bounding box,
         computed in float32 as ``differt2d_tpu.abc.Plottable.get_location``
-        does."""
-        if location not in LOCATIONS:
-            msg = f"location must be one of {LOCATIONS}, got {location!r}"
-            raise ValueError(msg)
+        does; another string raises
+        :class:`~differt2d_tpu_torch._runtime_typing.TypeCheckError`."""
         (xmin, ymin), (xmax, ymax) = self.bounding_box()
         xavg = 0.5 * (xmin + xmax)
         yavg = 0.5 * (ymin + ymax)

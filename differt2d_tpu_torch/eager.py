@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import optimize, prng
+from ._runtime_typing import unchecked
 from .defaults import KIND_RIS, KIND_VERTEX
 from .ops import geometry_ops as _ops
 
@@ -150,8 +151,8 @@ def _solve_opt(tx, rx, cw, ckind, cphi, x0, objective: str, steps: int,
         return _bounce_residuals(full, cwm, ckm, cpm)
 
     theta0 = x0.reshape(1, CM, o).expand(P, CM, o)
-    theta, last = optimize.minimize(fun, theta0, args=(txe, rxe, cwm, cpm), steps=steps,
-                                    implicit=implicit)
+    theta, last = unchecked(optimize.minimize)(fun, theta0, args=(txe, rxe, cwm, cpm),
+                                               steps=steps, implicit=implicit)
     theta, last = theta.reshape(P, C, M, o), last.reshape(P, C, M)
     if M > 1:
         best = torch.argmin(last, dim=-1, keepdim=True)  # [P, C, 1]

@@ -32,8 +32,11 @@ __all__ = (
     "Wall",
     "closest_point",
     "from_numpy",
+    "normalize",
     "parametric_to_cartesian",
     "parametric_to_cartesian_from_slice",
+    "path_length",
+    "segments_intersect",
     "stack_leaves",
     "unstack_leaves",
 )
@@ -45,6 +48,17 @@ from typing import Any, ClassVar, Iterable, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ._runtime_typing import (
+    FLOAT_ARRAY,
+    KEY_ARRAY,
+    OPT_BOOL,
+    OPT_KEY_ARRAY,
+    SCALAR_FLOAT,
+    XY_ARRAY,
+    Spec,
+    typecheck,
+    unchecked,
+)
 from ._tree import tree_flatten, tree_unflatten
 from .abc import Interactable, Object, Plottable
 from .defaults import (
@@ -55,17 +69,17 @@ from .defaults import (
     KIND_WALL,
     resolve_device,
 )
-from .logic import (
-    false_value,
-    greater_equal,
-    less,
-    less_equal,
-    logical_all,
-    logical_and,
-    logical_not,
-    logical_or,
-    true_value,
-)
+# The objects' methods run per path and per operation: they call the
+# undecorated bodies of the logic functions.
+from .logic import _false_value as false_value
+from .logic import _greater_equal as greater_equal
+from .logic import _less as less
+from .logic import _less_equal as less_equal
+from .logic import _logical_all as logical_all
+from .logic import _logical_and as logical_and
+from .logic import _logical_not as logical_not
+from .logic import _logical_or as logical_or
+from .logic import _true_value as true_value
 from .ops import geometry_ops as _ops
 from .optimize import minimize_many_random_uniform
 
@@ -122,6 +136,44 @@ def unstack_leaves(pytrees) -> list:
     return [tree_unflatten(spec, list(row)) for row in zip(*(t.unbind(0) for t in leaves))]
 
 
+@typecheck(P1=XY_ARRAY, P2=XY_ARRAY, P3=XY_ARRAY, P4=XY_ARRAY, tol=SCALAR_FLOAT, approx=OPT_BOOL)
+def segments_intersect(P1: torch.Tensor, P2: torch.Tensor, P3: torch.Tensor,  # noqa: N803
+                       P4: torch.Tensor, tol=0.005, approx: Optional[bool] = None,  # noqa: N803
+                       **kwargs: Any) -> torch.Tensor:
+    """Soft/hard test whether segments ``P1-P2`` and ``P3-P4`` intersect
+    (``differt2d_tpu.geometry.segments_intersect``): the batched
+    :func:`~differt2d_tpu_torch.ops.geometry_ops.segments_intersect`,
+    checked."""
+    return _ops.segments_intersect(P1, P2, P3, P4, tol=tol, approx=approx, **kwargs)
+
+
+@typecheck(points=XY_ARRAY)
+def path_length(points: torch.Tensor) -> torch.Tensor:
+    """Length of the polyline ``points[..., N, 2]``, with a finite gradient
+    where two points coincide (``differt2d_tpu.geometry.path_length``).
+
+    >>> pts = torch.tensor([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 0.0]])
+    >>> round(float(path_length(pts)), 4)  # 1 + 1 + sqrt(2)
+    3.4142
+    """
+    return _ops.path_length(points)
+
+
+@typecheck(vector=FLOAT_ARRAY)
+def normalize(vector: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unit vector and length over the last axis, zero-safe
+    (``differt2d_tpu.geometry.normalize``).
+
+    >>> v, length = normalize(torch.tensor([3.0, 4.0]))
+    >>> float(length), [round(float(x), 4) for x in v]
+    (5.0, [0.6, 0.8])
+    >>> float(normalize(torch.zeros(2))[1])  # zero vector: length 1 by guard
+    1.0
+    """
+    return _ops.normalize(vector)
+
+
+@typecheck(points=XY_ARRAY, target=FLOAT_ARRAY)
 def closest_point(points: torch.Tensor, target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Index of and distance to the point of ``points[N, 2]`` closest to
     ``target``."""
@@ -302,6 +354,13 @@ def _as_xy(point) -> torch.Tensor:
     return point.xy if isinstance(point, Point) else point
 
 
+# ``tx`` and ``rx`` of the solvers: a float ``[..., 2]`` tensor or a Point.
+_POINT_LIKE = Spec(
+    "Union[Float[Tensor, '... 2'], Point]",
+    predicate=lambda v: isinstance(v, Point) or XY_ARRAY._ok(v),
+)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Path(_Tensors, Plottable):
     """A ray path ``xys[n + 2, 2]`` (transmitter, bounces, receiver) and its
@@ -311,6 +370,7 @@ class Path(_Tensors, Plottable):
     loss: torch.Tensor = None
 
     @classmethod
+    @typecheck(tx=_POINT_LIKE, rx=_POINT_LIKE, key=OPT_KEY_ARRAY)
     def from_tx_objects_rx(cls, tx, objects: Sequence[Interactable], rx, *, key=None,
                            **kwargs: Any) -> "Path":
         """Path through the middle (``t = 0.5``) of every object."""
@@ -422,6 +482,7 @@ class ImagePath(Path):
     receiver back.  The loss is the interaction residual."""
 
     @classmethod
+    @typecheck(tx=_POINT_LIKE, rx=_POINT_LIKE, key=OPT_KEY_ARRAY)
     def from_tx_objects_rx(cls, tx, objects: Sequence[Wall], rx, *, key=None,
                            **kwargs: Any) -> "ImagePath":
         tx, rx = _as_xy(tx), _as_xy(rx)
@@ -462,7 +523,7 @@ def _solve(objects, tx, rx, objective, key, kwargs):
         return objective(objs, parametric_to_cartesian(objs, theta, n, tx_, rx_))
 
     kwargs.setdefault("many", 1)
-    theta, loss = minimize_many_random_uniform(
+    theta, loss = unchecked(minimize_many_random_uniform)(
         loss_fun, key, n_unknowns, args=((tx, rx, tuple(objects)),), device=tx.device,
         **kwargs,
     )
@@ -477,6 +538,7 @@ class FermatPath(Path):
     (``steps``, ``many``, ``implicit``)."""
 
     @classmethod
+    @typecheck(tx=_POINT_LIKE, rx=_POINT_LIKE, key=KEY_ARRAY)
     def from_tx_objects_rx(cls, tx, objects: Sequence[Interactable], rx, *, key,
                            **kwargs: Any) -> "FermatPath":
         tx, rx = _as_xy(tx), _as_xy(rx)
@@ -493,6 +555,7 @@ class MinPath(Path):
     length is the wrong objective); the loss is the solve's last loss."""
 
     @classmethod
+    @typecheck(tx=_POINT_LIKE, rx=_POINT_LIKE, key=KEY_ARRAY)
     def from_tx_objects_rx(cls, tx, objects: Sequence[Interactable], rx, *, key,
                            **kwargs: Any) -> "MinPath":
         tx, rx = _as_xy(tx), _as_xy(rx)

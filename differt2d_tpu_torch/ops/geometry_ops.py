@@ -20,7 +20,10 @@ from typing import Any, Optional
 
 import torch
 
-from ..logic import _resolve, activation, logical_and
+# The undecorated bodies: these primitives run per operation.
+from ..logic import _activation as activation
+from ..logic import _logical_and as logical_and
+from ..logic import _resolve
 
 _EPS32 = float(torch.finfo(torch.float32).eps)
 

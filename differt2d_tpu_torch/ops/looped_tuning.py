@@ -157,7 +157,7 @@ def sweep_census(city, X, Y, plan, inputs, scal, tiles, grad: bool) -> dict:
     live (``live``, ``live_rejected``: the only ones whose sweep the kernels
     run; the plain tracer's gates, so a count, not a bit-exact replay)."""
     from .. import eager
-    from ..logic import hard_sigmoid
+    from ..logic import _hard_sigmoid as hard_sigmoid
     from . import cull_tables
     from . import power_map_looped as pml
 

@@ -111,7 +111,7 @@ def solver_inputs(groups: dict, key, device, *, solver: str, steps: int, approx:
         raise ValueError(msg)
 
     def make():
-        function = logic.sigmoid if sigmoid else logic.hard_sigmoid
+        function = logic._sigmoid if sigmoid else logic._hard_sigmoid
         keys = None if key is None else eager.group_keys(groups, key)
 
         def spec(sub: dict, sub_keys) -> eager.EagerSpec:

@@ -145,7 +145,7 @@ def kernel_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> Kerne
             eager=eager.EagerSpec(
                 groups=eager.make_groups(groups, device),
                 approx=bool(approx),
-                function=logic.sigmoid if sigmoid else logic.hard_sigmoid,
+                function=logic._sigmoid if sigmoid else logic._hard_sigmoid,
             ),
         )
 

@@ -180,7 +180,7 @@ def looped_inputs(groups: dict, device, *, approx: bool, sigmoid: bool) -> Loope
             eager=eager.EagerSpec(
                 groups=eager.make_groups(groups, device),
                 approx=bool(approx),
-                function=logic.sigmoid if sigmoid else logic.hard_sigmoid,
+                function=logic._sigmoid if sigmoid else logic._hard_sigmoid,
             ),
         )
 
@@ -770,7 +770,7 @@ def sigmoid_saturates(device) -> bool:
         else:
             z = torch.tensor([-(cull_tables._SIGMOID_Z0 - 1.0),
                               cull_tables._SIGMOID_Z1 - 1.0], dtype=torch.float32)
-            lo, hi = logic.sigmoid(z, 1.0).tolist()
+            lo, hi = logic._sigmoid(z, 1.0).tolist()
             hit = lo == 0.0 and hi == 1.0
         _SIGMOID_SATURATES[key] = hit
     return hit

@@ -41,6 +41,14 @@ import torch.autograd.forward_ad as fwAD
 from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
 
 from . import prng
+from ._runtime_typing import (
+    CALLABLE,
+    FLOAT_ARRAY,
+    KEY_ARRAY,
+    SCALAR_INT_STRICT,
+    typecheck,
+    unchecked,
+)
 from ._tree import tree_flatten, tree_map, tree_unflatten
 from .defaults import DEFAULT_DEVICE, resolve_device
 
@@ -123,6 +131,7 @@ def constants(tree):
     return tree_map(plain, tree)
 
 
+@typecheck(fun=CALLABLE, x0=FLOAT_ARRAY, steps=SCALAR_INT_STRICT)
 def minimize(
     fun: Callable[..., torch.Tensor],
     x0: torch.Tensor,
@@ -318,6 +327,7 @@ class _ImplicitSolve(torch.autograd.Function):
         return (None, None, *grads)
 
 
+@typecheck(fun=CALLABLE)
 def value_and_grad_fwd(fun: Callable[..., torch.Tensor]) -> Callable[..., tuple]:
     """``(value, grad)`` of the scalar ``fun(x, *args)`` with respect to
     ``x``, in forward mode (``differt2d_tpu.optimize.value_and_grad_fwd``).
@@ -348,14 +358,16 @@ def value_and_grad_fwd(fun: Callable[..., torch.Tensor]) -> Callable[..., tuple]
     return wrapped
 
 
+@typecheck(fun=CALLABLE, key=KEY_ARRAY, n=SCALAR_INT_STRICT)
 def minimize_random_uniform(fun: Callable[..., torch.Tensor], key, n: int, *,
                             device=DEFAULT_DEVICE, **kwargs: Any):
     """:func:`minimize` from ``x0 = prng.uniform(key, (n,))`` (JAX's draw,
     bit for bit) on ``device``."""
     x0 = torch.from_numpy(prng.uniform(key, (int(n),))).to(resolve_device(device))
-    return minimize(fun, x0, **kwargs)
+    return unchecked(minimize)(fun, x0, **kwargs)
 
 
+@typecheck(fun=CALLABLE, key=KEY_ARRAY, n=SCALAR_INT_STRICT, many=SCALAR_INT_STRICT)
 def minimize_many_random_uniform(fun: Callable[..., torch.Tensor], key, n: int,
                                  many: int = 10, *, device=DEFAULT_DEVICE, **kwargs: Any):
     """The best (least last loss, the first on ties) of ``many``
@@ -363,10 +375,44 @@ def minimize_many_random_uniform(fun: Callable[..., torch.Tensor], key, n: int,
     ``prng.split(key, many)``; ``many == 1`` draws from ``key`` itself, as
     the JAX package does."""
     if many == 1:
-        return minimize_random_uniform(fun, key, n, device=device, **kwargs)
-    runs = [minimize_random_uniform(fun, k, n, device=device, **kwargs)
+        return unchecked(minimize_random_uniform)(fun, key, n, device=device, **kwargs)
+    runs = [unchecked(minimize_random_uniform)(fun, k, n, device=device, **kwargs)
             for k in prng.split(key, many)]
     xs = torch.stack([x for x, _ in runs])
     losses = torch.stack([loss for _, loss in runs])
     i_min = torch.argmin(losses)
     return xs[i_min], losses[i_min]
+
+
+class OptaxAdam:
+    """``optax.chain(optax.adam(lr), optax.zero_nans())`` on one tensor, with
+    optax's arithmetic (that of :func:`minimize`'s steps: b1 0.9, b2 0.999,
+    eps 1e-8, the float32 bias corrections of :func:`bias_table`):
+    ``x = opt.step(x, g)`` takes one of at most ``steps`` steps from the
+    gradient ``g``.  An element of the update that is NaN is 0
+    (``zero_nans``), so a NaN gradient leaves that coordinate where it is.
+
+    >>> opt = OptaxAdam(0.01, steps=2)
+    >>> opt.step(torch.zeros(2), torch.tensor([1.0, float("nan")])).tolist()
+    [-0.00999993272125721, 0.0]
+    """
+
+    def __init__(self, lr: float, steps: int):
+        self.lr, self.steps, self.count = lr, int(steps), 0
+        self.m = self.v = None
+
+    def step(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        if self.count == self.steps:
+            msg = f"OptaxAdam was made for {self.steps} steps"
+            raise ValueError(msg)
+        if self.m is None:
+            self.m, self.v = torch.zeros_like(g), torch.zeros_like(g)
+        t, self.count = self.count, self.count + 1
+        # A tensor, not host floats, as in _minimize.
+        one_minus = torch.from_numpy(np.float32(1.0) - bias_table(self.steps)).to(g.device)
+        self.m = (1 - ADAM_B1) * g + ADAM_B1 * self.m
+        self.v = (1 - ADAM_B2) * (g * g) + ADAM_B2 * self.v
+        m_hat = self.m / one_minus[t]
+        v_hat = self.v / one_minus[self.steps + t]
+        update = (-self.lr) * (m_hat / (torch.sqrt(v_hat + ADAM_EPS_ROOT) + ADAM_EPS))
+        return x + torch.where(torch.isnan(update), 0.0, update)

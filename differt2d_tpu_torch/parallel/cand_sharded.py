@@ -31,7 +31,7 @@ import torch.distributed as dist
 from .. import tracer as _tracer
 from ..defaults import DEFAULT_ALPHA, DEFAULT_DEVICE, DEFAULT_HEIGHT, DEFAULT_PATCH
 from ..defaults import DEFAULT_R_COEF, resolve_device
-from ..logic import hard_sigmoid
+from ..logic import _hard_sigmoid as hard_sigmoid
 from .sharding import _GatherRows, _grids, _SumOver, local_block, pack, replicated_request, unpack
 
 

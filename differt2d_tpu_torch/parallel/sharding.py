@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from .. import tracer as _tracer
+from .._runtime_typing import unchecked
 from .._tree import tree_flatten, tree_unflatten
 from ..defaults import DEFAULT_DEVICE, resolve_device
 
@@ -277,8 +278,9 @@ def power_map_sharded(
     group = mesh.get_group(axis_name)
     X, Y = _grids(X, Y, dev)
     scene, X, Y, kwargs = replicated_request(scene.to(dev), X, Y, kwargs, [group])
-    out = _tracer.power_map(scene, local_block(X, group), local_block(Y, group), grad=grad,
-                            value_and_grad=value_and_grad, backend=backend, device=dev, **kwargs)
+    out = unchecked(_tracer.power_map)(
+        scene, local_block(X, group), local_block(Y, group), grad=grad,
+        value_and_grad=value_and_grad, backend=backend, device=dev, **kwargs)
     flat = _GatherRows.apply(pack(out, grad, value_and_grad), group)
     return unpack(flat[: X.numel()], X.shape, grad, value_and_grad)
 

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from .. import logic
+from .._runtime_typing import unchecked
 from ..defaults import (
     DEFAULT_ALPHA,
     DEFAULT_DEVICE,
@@ -40,7 +41,7 @@ from ..defaults import (
     KIND_WALL,
     resolve_device,
 )
-from ..logic import hard_sigmoid
+from ..logic import _hard_sigmoid as hard_sigmoid
 from ..ops import geometry_ops as _ops
 from .sharding import _grids, _require_initialized, all_gather, all_reduce, local_block
 from .sharding import mesh_device_type
@@ -81,6 +82,7 @@ def power_map_wall_sharded(
     to ``power_map(..., max_order=max_order, backend="torch")`` on
     wall-only scenes; the map is on every rank."""
     dev = resolve_device(device)
+    function = unchecked(function)
     if approx is None:
         approx = logic.ENABLE_APPROX
     if max_order > 1:

@@ -42,6 +42,17 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, _declare)
 
 
+def available() -> bool:
+    """Whether the native enumerator loads (building it on first use).  A
+    failed build only makes this ``False``: the sets that need the library
+    still raise with the compiler's output."""
+    try:
+        load_library()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def enumerate_paths(allowed: np.ndarray, order: int) -> np.ndarray:
     """Every sequence of ``order`` nodes of ``allowed`` (sorted unique
     ``int[m]``) with no two consecutive repeats, in lexicographic order:

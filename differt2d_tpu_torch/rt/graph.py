@@ -7,7 +7,10 @@ Counterpart of :mod:`differt2d_tpu.rt.graph`:
   node indices with **no two consecutive repeats**, giving
   ``m * (m - 1)**(order - 1)`` candidates over ``m`` allowed nodes;
 * ``filter_nodes`` removes nodes entirely;
-* rows come out in lexicographic order of node index.
+* rows come out in lexicographic order of node index;
+* :class:`CompleteGraph` and :class:`DiGraph` are the JAX package's stand-ins
+  for ``differt_core.rt``'s graphs: the virtual from/to nodes are
+  ``num_nodes`` and ``num_nodes + 1``, and a path's ``depth`` counts them.
 
 Sets of :data:`~._native.NATIVE_THRESHOLD` (1,024) rows or more, such as
 the city extract's 18,360 order-2 candidates, come from the native C++
@@ -18,10 +21,12 @@ mixed-radix decoder; both give the same arrays.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
+from .._runtime_typing import SCALAR_INT_STRICT, typecheck, unchecked
 from . import _native
 
 
@@ -89,6 +94,11 @@ def candidates_for_order(
     return out
 
 
+@typecheck(
+    num_nodes=SCALAR_INT_STRICT,
+    min_order=SCALAR_INT_STRICT,
+    max_order=SCALAR_INT_STRICT,
+)
 def path_candidate_matrices(
     num_nodes: int,
     min_order: int = 0,
@@ -98,14 +108,6 @@ def path_candidate_matrices(
     filter_nodes: Optional[Sequence[int]] = None,
 ) -> dict[int, np.ndarray]:
     """Candidates grouped per order: ``{order: int32[C_o, order]}``."""
-    for name, value in (
-        ("num_nodes", num_nodes),
-        ("min_order", min_order),
-        ("max_order", max_order),
-    ):
-        if isinstance(value, bool) or not isinstance(value, (int, np.integer)):
-            msg = f"{name} must be an int, got {type(value).__name__}"
-            raise TypeError(msg)
     if order is not None:
         min_order = max_order = order
     key = tuple(sorted(int(i) for i in filter_nodes)) if filter_nodes is not None else None
@@ -113,3 +115,84 @@ def path_candidate_matrices(
         o: candidates_for_order(int(num_nodes), o, key)
         for o in range(int(min_order), int(max_order) + 1)
     }
+
+
+@typecheck(
+    num_nodes=SCALAR_INT_STRICT,
+    min_order=SCALAR_INT_STRICT,
+    max_order=SCALAR_INT_STRICT,
+)
+def all_path_candidates(
+    num_nodes: int,
+    min_order: int = 0,
+    max_order: int = 1,
+    *,
+    order: Optional[int] = None,
+    filter_nodes: Optional[Sequence[int]] = None,
+) -> list[torch.Tensor]:
+    """Every candidate as its own ``int32[order]`` tensor on the CPU,
+    order-major, then lexicographic (``differt2d_tpu.rt.all_path_candidates``).
+
+    >>> [c.tolist() for c in all_path_candidates(3, max_order=1)]
+    [[], [0], [1], [2]]
+    """
+    groups = unchecked(path_candidate_matrices)(
+        num_nodes, min_order=min_order, max_order=max_order, order=order,
+        filter_nodes=filter_nodes,
+    )
+    return [row for o in sorted(groups) for row in torch.from_numpy(groups[o].copy()).unbind(0)]
+
+
+def _paths(num_nodes: int, from_: int, to: int, depth: int, include_from_and_to: bool,
+           filter_nodes: Optional[tuple[int, ...]] = None) -> Iterator[np.ndarray]:
+    """The rows of :func:`candidates_for_order` at order ``depth - 2``, each
+    between ``from_`` and ``to`` when ``include_from_and_to``."""
+    for row in candidates_for_order(num_nodes, depth - 2, filter_nodes):
+        if include_from_and_to:
+            yield np.concatenate(([from_], row, [to])).astype(np.int32)
+        else:
+            yield row
+
+
+class CompleteGraph:
+    """Complete graph over ``num_nodes`` object nodes
+    (``differt2d_tpu.rt.CompleteGraph``, the stand-in for
+    ``differt_core.rt.CompleteGraph``): the virtual from/to nodes are
+    ``num_nodes`` and ``num_nodes + 1``."""
+
+    def __init__(self, num_nodes: int):
+        self.num_nodes = num_nodes
+
+    def all_paths(self, from_: int, to: int, depth: int,
+                  include_from_and_to: bool = False) -> Iterator[np.ndarray]:
+        """The paths of ``depth`` nodes from ``from_`` to ``to``: ``depth``
+        counts the two ends, so each has ``depth - 2`` interactions
+        (``int32`` rows, read-only without the ends)."""
+        return _paths(self.num_nodes, from_, to, depth, include_from_and_to)
+
+
+class DiGraph:
+    """Directed graph with disconnected nodes (``differt2d_tpu.rt.DiGraph``,
+    the stand-in for ``differt_core.rt.DiGraph``)."""
+
+    def __init__(self, num_nodes: int):
+        self.num_nodes = num_nodes
+        self._disconnected: set[int] = set()
+
+    @classmethod
+    def from_complete_graph(cls, graph: CompleteGraph) -> "DiGraph":
+        return cls(graph.num_nodes)
+
+    def insert_from_and_to_nodes(self) -> tuple[int, int]:
+        """The virtual from/to nodes: ``(num_nodes, num_nodes + 1)``."""
+        return self.num_nodes, self.num_nodes + 1
+
+    def disconnect_nodes(self, *nodes: int) -> None:
+        """Remove ``nodes`` from every later path."""
+        self._disconnected.update(int(n) for n in nodes)
+
+    def all_paths(self, from_: int, to: int, depth: int,
+                  include_from_and_to: bool = False) -> Iterator[np.ndarray]:
+        """:meth:`CompleteGraph.all_paths` over the connected nodes."""
+        return _paths(self.num_nodes, from_, to, depth, include_from_and_to,
+                      tuple(sorted(self._disconnected)))

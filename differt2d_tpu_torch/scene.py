@@ -41,6 +41,17 @@ import numpy as np
 import torch
 
 from . import prng, tracer
+from ._runtime_typing import (
+    CALLABLE,
+    FLOAT_ARRAY,
+    KEY_ARRAY,
+    OPT_BOOL,
+    OPT_CALLABLE,
+    OPT_KEY_ARRAY,
+    SCALAR_INT_STRICT,
+    typecheck,
+    unchecked,
+)
 from .abc import Plottable
 from .defaults import (
     DEFAULT_DEVICE,
@@ -61,7 +72,7 @@ from .geometry import (
     stack_leaves,
     unstack_leaves,
 )
-from .logic import is_true
+from .logic import _is_true
 from .rt import path_candidate_matrices
 from .utils import received_power
 
@@ -187,6 +198,7 @@ class Scene(Plottable):
         )
 
     @classmethod
+    @typecheck(walls=FLOAT_ARRAY)
     def from_walls_array(cls, walls, *, device=DEFAULT_DEVICE) -> "Scene":
         """Empty scene (no TX/RX) from a ``[num_walls, 2, 2]`` array."""
         return cls.from_arrays(walls, device=device)
@@ -271,6 +283,12 @@ class Scene(Plottable):
         return scene.add_objects(*(Wall(xys=_f32(xys, scene.device)) for xys in rings))
 
     @classmethod
+    @typecheck(
+        key=KEY_ARRAY,
+        n_transmitters=SCALAR_INT_STRICT,
+        n_walls=SCALAR_INT_STRICT,
+        n_receivers=SCALAR_INT_STRICT,
+    )
     def random_uniform_scene(
         cls,
         n_transmitters: int = 1,
@@ -576,8 +594,8 @@ class Scene(Plottable):
 
     def _closest(self, points: Mapping, coords) -> tuple:
         names = list(points)
-        i_min, distance = closest_point(torch.stack([points[k] for k in names]),
-                                        _f32(coords, self.device))
+        i_min, distance = unchecked(closest_point)(torch.stack([points[k] for k in names]),
+                                                   _f32(coords, self.device))
         return names[int(i_min)], distance
 
     def get_closest_transmitter(self, coords) -> tuple[str, torch.Tensor]:
@@ -601,12 +619,17 @@ class Scene(Plottable):
     def _np_path_candidates(self, min_order: int = 0, max_order: int = 1, *,
                             order: Optional[int] = None, filter_objects=None) -> list:
         """Candidates as host rows, order-major, then lexicographic."""
-        groups = path_candidate_matrices(
+        groups = unchecked(path_candidate_matrices)(
             self.num_objects, min_order=min_order, max_order=max_order, order=order,
             filter_nodes=tracer._filter_nodes(self, filter_objects),
         )
         return [row for o in sorted(groups) for row in groups[o]]
 
+    @typecheck(
+        min_order=SCALAR_INT_STRICT,
+        max_order=SCALAR_INT_STRICT,
+        filter_objects=OPT_CALLABLE,
+    )
     def all_path_candidates(self, min_order: int = 0, max_order: int = 1, *,
                             order: Optional[int] = None, filter_objects=None) -> list:
         """Every candidate (``int32[order]`` object indices on the scene's
@@ -663,11 +686,12 @@ class Scene(Plottable):
         :meth:`all_paths` that :func:`~differt2d_tpu_torch.logic.is_true`
         accepts."""
         for tx_key, rx_key, valid, path, cand in self.all_paths(approx=approx, **kwargs):
-            if is_true(valid, approx=approx):
+            if _is_true(valid, approx=approx):
                 yield tx_key, rx_key, path, cand
 
     # -- accumulators --------------------------------------------------------
 
+    @typecheck(fun=CALLABLE, approx=OPT_BOOL, key=OPT_KEY_ARRAY)
     def accumulate_over_paths(self, fun: Callable, fun_args: tuple = (),
                               fun_kwargs: Optional[Mapping] = None, *, reduce_all: bool = False,
                               **kwargs: Any):
@@ -699,6 +723,14 @@ class Scene(Plottable):
             return total
         return results()
 
+    @typecheck(
+        X=FLOAT_ARRAY,
+        Y=FLOAT_ARRAY,
+        fun=CALLABLE,
+        approx=OPT_BOOL,
+        key=OPT_KEY_ARRAY,
+        filter_objects=OPT_CALLABLE,
+    )
     def accumulate_on_transmitters_grid_over_paths(self, X, Y, fun: Callable,
                                                    fun_args: tuple = (),
                                                    fun_kwargs: Optional[Mapping] = None, *,
@@ -709,6 +741,14 @@ class Scene(Plottable):
         return self._grid_accumulate(X, Y, fun, fun_args, dict(fun_kwargs or {}),
                                      on_transmitters=True, point_cls=transmitter_cls, **kwargs)
 
+    @typecheck(
+        X=FLOAT_ARRAY,
+        Y=FLOAT_ARRAY,
+        fun=CALLABLE,
+        approx=OPT_BOOL,
+        key=OPT_KEY_ARRAY,
+        filter_objects=OPT_CALLABLE,
+    )
     def accumulate_on_receivers_grid_over_paths(self, X, Y, fun: Callable,
                                                 fun_args: tuple = (),
                                                 fun_kwargs: Optional[Mapping] = None, *,
@@ -760,7 +800,7 @@ class Scene(Plottable):
         solver = _SOLVERS[request["path_cls"]]
 
         def run(single):
-            return tracer.power_map(
+            return unchecked(tracer.power_map)(
                 single, X, Y, min_order=request["min_order"], max_order=request["max_order"],
                 order=request["order"], solver=solver, key=request["key"],
                 filter_objects=request["filter_objects"], on_transmitters=on_transmitters,

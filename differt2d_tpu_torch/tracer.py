@@ -43,14 +43,25 @@ from .eager import (
     make_groups,
 )
 from . import logic, optimize, prng
-from .logic import hard_sigmoid, sigmoid
+from ._runtime_typing import (
+    OPT_BOOL,
+    OPT_CALLABLE,
+    OPT_KEY_ARRAY,
+    SCALAR_INT_STRICT,
+    XY_ARRAY,
+    TypeCheckError,
+    literal_spec,
+    typecheck,
+    unchecked,
+)
+from .logic import _hard_sigmoid, _sigmoid
 from .ops import opt_solver_kernel, power_map_kernel, power_map_looped
 from .ops.cull_tables import _SIGMOID_Z0
 from .rt import path_candidate_matrices
 
 __all__ = (
     "KIND_RIS", "KIND_VERTEX", "KIND_WALL", "SceneArrays", "make_pixels_fn", "power_map",
-    "trace_paths",
+    "scene_arrays", "trace_paths",
 )
 
 # Stream-proxy bounds of the JAX package's choice between its unrolled and
@@ -67,7 +78,7 @@ _OPTIONS = {
     "solver": "image",
     "approx": None,
     "alpha": DEFAULT_ALPHA,
-    "function": hard_sigmoid,
+    "function": _hard_sigmoid,
     "tol": 1e-2,
     "patch": DEFAULT_PATCH,
     "r_coef": DEFAULT_R_COEF,
@@ -80,6 +91,12 @@ _OPTIONS = {
     "on_transmitters": False,
     "power_fun": None,
 }
+
+
+def scene_arrays(scene) -> SceneArrays:
+    """The scene's dense tensors (``differt2d_tpu.tracer.scene_arrays``,
+    which builds them from the objects; a port scene holds them already)."""
+    return SceneArrays(walls=scene.walls, kind=scene.kind, phi=scene.phi)
 
 
 # -- dispatch -------------------------------------------------------------------
@@ -104,7 +121,7 @@ def _all_vertex_allowed(scene, filter_objects) -> bool:
 
 
 def _groups_for(scene, kw) -> dict:
-    return path_candidate_matrices(
+    return unchecked(path_candidate_matrices)(
         scene.num_objects,
         min_order=kw["min_order"],
         max_order=kw["max_order"],
@@ -189,7 +206,7 @@ def _kernel_eligible(
     for name in _SCALAR_NAMES:
         if not _concrete_scalar(kw[name]):
             return False, f"{name} is not a concrete scalar"
-    if kw["function"] not in (hard_sigmoid, sigmoid):
+    if unchecked(kw["function"]) not in (_hard_sigmoid, _sigmoid):
         return False, "activation other than hard_sigmoid/sigmoid"
     if kw["on_transmitters"] and KIND_RIS in scene.kinds:
         return False, "on_transmitters with RIS breaks path-reversal symmetry"
@@ -261,7 +278,7 @@ def _looped_gates(scene, kw: dict, groups: dict) -> tuple[bool, bool]:
         o >= 1 and g.size and any(scene.kinds[i] != KIND_VERTEX for i in np.ravel(g))
         for o, g in groups.items()
     )
-    approx, sig = bool(kw["approx"]), kw["function"] is sigmoid
+    approx, sig = bool(kw["approx"]), _is_sigmoid(kw)
     ok = True
     if approx and sig:
         walls = np.asarray(optimize.constants(scene.walls.detach().reshape(-1, 2).cpu()).tolist(),
@@ -277,11 +294,26 @@ def _solver_options(kw: dict) -> dict:
     options ``kw`` of a solver-routed request."""
     return dict(
         solver=kw["solver"], steps=int(kw["steps"]), key=kw["key"], approx=kw["approx"],
-        sigmoid=kw["function"] is sigmoid, on_transmitters=kw["on_transmitters"],
+        sigmoid=_is_sigmoid(kw), on_transmitters=kw["on_transmitters"],
         scalars=tuple(kw[name] for name in _SCALAR_NAMES),
     )
 
 
+def _is_sigmoid(kw: dict) -> bool:
+    """Whether the request's activation is :func:`~differt2d_tpu_torch.logic.sigmoid`
+    (the public, checked function or its body)."""
+    return unchecked(kw["function"]) is _sigmoid
+
+
+@typecheck(
+    approx=OPT_BOOL,
+    key=OPT_KEY_ARRAY,
+    min_order=SCALAR_INT_STRICT,
+    max_order=SCALAR_INT_STRICT,
+    filter_objects=OPT_CALLABLE,
+    solver=literal_spec("image", "fermat", "mpt"),
+    backend=literal_spec("auto", "torch", "cuda"),
+)
 def power_map(
     scene,
     X,
@@ -336,10 +368,10 @@ def power_map(
     Y = torch.as_tensor(Y).to(device=dev, dtype=torch.float32)
     if X.shape != Y.shape:
         msg = f"X and Y must have the same shape, got {tuple(X.shape)} vs {tuple(Y.shape)}"
-        raise ValueError(msg)
+        raise TypeCheckError(msg)
     if X.dim() != 2:
         msg = f"X and Y must be 2-D grids, got ndim={X.dim()}"
-        raise ValueError(msg)
+        raise TypeCheckError(msg)
     scene = scene.to(dev)
     return map_groups(scene, X, Y, _groups_for(scene, kw), kw, backend=backend, grad=grad,
                       value_and_grad=value_and_grad)
@@ -356,6 +388,9 @@ def _options(kwargs: dict, backend: str) -> dict:
         msg = f"backend must be 'auto', 'torch' or 'cuda', got {backend!r}"
         raise ValueError(msg)
     kw = {**_OPTIONS, **kwargs}
+    # The kernels' plain versions and the eager tracer call the activation
+    # per operation: its body, unchecked.
+    kw["function"] = unchecked(kw["function"])
     if kw["approx"] is None:
         kw["approx"] = bool(logic.ENABLE_APPROX)
     for name in ("steps", "many"):
@@ -384,7 +419,7 @@ def map_groups(scene, X, Y, groups: dict, kw: dict, *, backend: str, grad: bool 
         cull, shadow = _looped_gates(scene, kw, groups)
         Z = power_map_looped.power_map_looped(
             scene, X, Y, groups, want_grad=want_grad,
-            approx=kw["approx"], sigmoid=kw["function"] is sigmoid,
+            approx=kw["approx"], sigmoid=_is_sigmoid(kw),
             on_transmitters=kw["on_transmitters"],
             scalars=tuple(kw[name] for name in _SCALAR_NAMES), cull=cull, shadow=shadow,
         )
@@ -393,7 +428,7 @@ def map_groups(scene, X, Y, groups: dict, kw: dict, *, backend: str, grad: bool 
     elif route == "cuda":
         Z = power_map_kernel.power_map_kernel(
             scene, X, Y, groups, want_grad=want_grad,
-            approx=kw["approx"], sigmoid=kw["function"] is sigmoid,
+            approx=kw["approx"], sigmoid=_is_sigmoid(kw),
             on_transmitters=kw["on_transmitters"],
             scalars=tuple(kw[name] for name in _SCALAR_NAMES),
         )
@@ -482,6 +517,16 @@ def make_pixels_fn(
     return run
 
 
+@typecheck(
+    tx=XY_ARRAY,
+    rx=XY_ARRAY,
+    approx=OPT_BOOL,
+    key=OPT_KEY_ARRAY,
+    min_order=SCALAR_INT_STRICT,
+    max_order=SCALAR_INT_STRICT,
+    filter_objects=OPT_CALLABLE,
+    solver=literal_spec("image", "fermat", "mpt"),
+)
 def trace_paths(
     scene,
     tx,
@@ -493,7 +538,7 @@ def trace_paths(
     solver: str = "image",
     approx: Optional[bool] = None,
     alpha=DEFAULT_ALPHA,
-    function=hard_sigmoid,
+    function=logic.hard_sigmoid,
     tol=1e-2,
     patch=DEFAULT_PATCH,
     steps: int = 100,
@@ -519,7 +564,8 @@ def trace_paths(
     scene = scene.to(dev)
     if approx is None:
         approx = bool(logic.ENABLE_APPROX)
-    groups = path_candidate_matrices(
+    function = unchecked(function)
+    groups = unchecked(path_candidate_matrices)(
         scene.num_objects, min_order=min_order, max_order=max_order, order=order,
         filter_nodes=_filter_nodes(scene, filter_objects),
     )
@@ -528,7 +574,7 @@ def trace_paths(
         solver=solver, steps=int(steps), many=int(many),
         keys=None if key is None else group_keys(groups, prng.as_key(key)), kinds=scene.kinds,
     )
-    arrays = SceneArrays(walls=scene.walls, kind=scene.kind, phi=scene.phi)
+    arrays = scene_arrays(scene)
     ends = [torch.as_tensor(p).to(device=dev, dtype=torch.float32).reshape(1, 1, 2)
             for p in (tx, rx)]
     out = {}

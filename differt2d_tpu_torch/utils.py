@@ -6,12 +6,14 @@ from typing import Sequence
 
 import numpy as np
 
+from ._runtime_typing import SCALAR_FLOAT, typecheck
 from .defaults import DEFAULT_HEIGHT, DEFAULT_R_COEF
 
 P0: float = 100.0
 """Received power at zero distance with the default parameters."""
 
 
+@typecheck(r_coef=SCALAR_FLOAT, height=SCALAR_FLOAT)
 def received_power(transmitter, receiver, path, interacting_objects: Sequence,
                    r_coef=DEFAULT_R_COEF, height=DEFAULT_HEIGHT):
     """Received power along a path: ``r_coef**n / (height**2 + r**2)``, with

@@ -31,7 +31,7 @@ from test_torch_cull_tables import random_city
 from differt2d_tpu import tracer as jtracer
 from differt2d_tpu.geometry import Point
 from differt2d_tpu.scene import Scene as JScene
-from differt2d_tpu_torch import power_map
+from differt2d_tpu_torch import TypeCheckError, power_map
 from differt2d_tpu_torch import tracer as ttracer
 from differt2d_tpu_torch.logic import sigmoid
 from differt2d_tpu_torch.ops import power_map_looped as pml
@@ -79,7 +79,8 @@ def test_from_geojson_and_locations_match_jax():
                                       np.asarray(js.receivers["rx"].xy))
     empty = Scene.from_geojson('{"features": []}', device="cpu")
     assert empty.num_objects == 0 and empty.transmitters["tx"].tolist() == [0.0, 0.0]
-    with pytest.raises(ValueError, match="location"):
+    # An invalid location fails get_location's check, as in the JAX package.
+    with pytest.raises(TypeCheckError, match="Expected type: Literal"):
         Scene.city_extract_scene(device="cpu").get_location("X")
     with pytest.raises(NotImplementedError):
         Scene.from_geojson(3, device="cpu")

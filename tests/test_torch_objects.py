@@ -31,7 +31,7 @@ from differt2d_tpu_torch.abc import LOCATIONS
 from differt2d_tpu_torch.defaults import KIND_RIS, KIND_VERTEX, KIND_WALL
 from differt2d_tpu_torch.ops import power_map_kernel as pmk
 from differt2d_tpu_torch.scene import SCENE_NAMES, Scene, load_scene_arrays
-from differt2d_tpu_torch.utils import received_power
+from differt2d_tpu_torch.utils import kink_excess, received_power
 
 torch.set_num_threads(1)
 
@@ -522,6 +522,36 @@ def test_grid_accumulators_match_jax(which, path):
         ref = tracer.power_map(ts, X, Y, r_coef=0.4, on_transmitters=which == "transmitters",
                                device="cpu", **GRID_KW)
         assert torch.equal(Z, ref)
+
+
+def test_general_path_transmitter_grid_matches_jax_general_path():
+    """The general path's transmitter grid (a path function of the user's,
+    the basic scene, order <= 1, soft logic, the 32 x 32 grid of
+    ``chip_smoke.py`` phase 22) equals the JAX package's general path at
+    the general path's tolerance (rtol 2e-5 / atol 1e-6) on every pixel.
+    Where either package's general path differs from its fast path (a
+    bounce within an ulp of a wall's end, ``vn u / un`` against
+    ``(vn / un) u``), it stays within the kink allowance: the JAX package's
+    own fast-vs-general difference, not a fault of the port."""
+    js, ts = _scenes()["basic_scene"]
+    x = np.linspace(0.01, 0.99, 32, dtype=np.float32)
+    y = np.linspace(0.012, 0.988, 32, dtype=np.float32)
+    Xn, Yn = np.meshgrid(x, y)
+    kw = dict(reduce_all=True, max_order=1, approx=True)
+    X, Y = torch.from_numpy(Xn), torch.from_numpy(Yn)
+    general = _np(ts.accumulate_on_transmitters_grid_over_paths(X, Y, _general_power, **kw))
+    fast = _np(ts.accumulate_on_transmitters_grid_over_paths(X, Y, received_power, **kw))
+    jgeneral = np.asarray(js.accumulate_on_transmitters_grid_over_paths(
+        jnp.asarray(Xn), jnp.asarray(Yn), _general_power, **kw))
+    jfast = np.asarray(jtracer.power_map(js, jnp.asarray(Xn), jnp.asarray(Yn),
+                                         on_transmitters=True, backend="xla", max_order=1,
+                                         approx=True))
+    tol = dict(rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(general, jgeneral, **tol)
+    for a, b in ((general, fast), (jgeneral, jfast)):
+        n_bad, allowed = kink_excess(a, b, **tol)
+        assert n_bad <= allowed, (n_bad, allowed)
+        np.testing.assert_allclose(a, b, **TOL)
 
 
 def _custom_power(transmitter, receiver, path, interacting_objects, scale=1.0):
